@@ -1,0 +1,116 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``needletail_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into its
+own shared library with a plain C interface under
+``build/needletail_tpu_torch/`` at the repository root, and loads with
+``ctypes``.  The build runs at first CUDA use, never at import, so a
+CPU-only install needs no compiler.  All stale sources compile at once,
+one ``nvcc`` process each.  A library newer than its source is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "needletail_tpu_torch"
+
+SOURCES = ("hash_keys", "histogram16")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+            "kernels of needletail_tpu_torch are compiled at first use"
+        )
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    so = _lib_path(name)
+    src = CSRC / f"{name}.cu"
+    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every stale kernel source, all ``nvcc`` processes at once.
+
+    Returns ``{name: compiler output}`` for the sources it compiled (the
+    ``-Xptxas -v`` lines give registers and shared memory per kernel).
+    Raises ``RuntimeError`` with the compiler's output when one fails.
+    """
+    with _lock:
+        return _build_locked()
+
+
+def _build_locked() -> Dict[str, str]:
+    todo = [name for name in SOURCES if _stale(name)]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = _lib_path(name).with_suffix(f".so.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            tmp,
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
+            ),
+        )
+    logs: Dict[str, str] = {}
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out.decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, _lib_path(name))
+    if failed:
+        detail = "\n".join(f"--- {n}.cu ---\n{logs[n]}" for n in failed)
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{detail}")
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name``, building first if
+    needed.  Raises when CUDA, ``nvcc`` or the build is missing."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            if name not in SOURCES:
+                raise KeyError(f"no kernel source named {name!r}")
+            _build_locked()
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        return _libs[name]

@@ -1,0 +1,74 @@
+"""Seeded synthetic read planes for holding kernels against their plain
+versions (the tests and ``chip_smoke.py`` use them).
+
+Every input comes from a numpy ``Generator``, so the JAX package, the
+port's plain versions and its CUDA kernels all see the same bytes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from needletail_tpu.batch import PackedReadBatch
+from needletail_tpu.encoding import pack_codes_host_rows
+
+__all__ = ["CLEAN", "DIRTY", "random_reads", "packed_batch"]
+
+# case-folded bases only: every in-length byte encodes
+CLEAN = b"ACGTacgt"
+# plus N, U/u (a base only under normalization), IUPAC codes and a NUL
+DIRTY = b"ACGTacgtACGTNnUuRYKMSWB\x00"
+
+
+def random_reads(
+    rng: np.random.Generator,
+    rows: int,
+    width: int,
+    dirty_frac: float = 0.0,
+    full_frac: float = 0.25,
+):
+    """``(seqs uint8 [rows, width], lengths int32 [rows])``.
+
+    A row draws from :data:`DIRTY` with probability ``dirty_frac``, else
+    from :data:`CLEAN`.  Lengths are uniform in ``[0, width]``, with about
+    ``full_frac`` of the rows at the full width; bytes past a row's length
+    are 0, as the framers pad them.  With ``dirty_frac > 0``, row 0 is
+    full width and holds an N, so some row is always dirty.
+    """
+    lengths = rng.integers(0, width + 1, rows).astype(np.int32)
+    lengths[rng.random(rows) < full_frac] = width
+    clean = np.frombuffer(CLEAN, np.uint8)
+    dirty = np.frombuffer(DIRTY, np.uint8)
+    seqs = clean[rng.integers(0, clean.size, (rows, width))]
+    is_dirty = rng.random(rows) < dirty_frac
+    n_dirty = int(is_dirty.sum())
+    if n_dirty:
+        seqs[is_dirty] = dirty[rng.integers(0, dirty.size, (n_dirty, width))]
+    seqs[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    if dirty_frac > 0 and rows and width:
+        # at least one row holds an ambiguous base within its length
+        lengths[0] = width
+        seqs[0, width // 2] = ord("N")
+    return seqs, lengths
+
+
+def packed_batch(
+    seqs: np.ndarray, lengths: np.ndarray, vmode: int, normalized: bool = True
+) -> PackedReadBatch:
+    """Pack an ASCII plane in one validity shape of the wire: 0 clean (no
+    validity plane), 1 dense bitplane, 2 lean rows.  Raises when the reads
+    do not allow that shape (vmode 0 needs clean reads, 1 and 2 dirty)."""
+    codes, vbits, row_invalid = pack_codes_host_rows(
+        seqs, lengths, normalized=normalized
+    )
+    if (vmode == 0) != (vbits is None):
+        raise ValueError(f"vmode {vmode} does not fit these reads")
+    if vmode == 2:
+        rows = np.flatnonzero(row_invalid).astype(np.int32)
+        return PackedReadBatch(
+            codes=codes, lengths=lengths, normalized=normalized,
+            vrows=np.ascontiguousarray(vbits[rows]), vrow_idx=rows,
+        )
+    return PackedReadBatch(
+        codes=codes, lengths=lengths, vbits=vbits, normalized=normalized
+    )
