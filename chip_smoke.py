@@ -6,22 +6,38 @@
 Phases, each fatal on failure:
 
 1. print the card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions and whether the native framer loads; build the CUDA kernels
-   from ``needletail_tpu_torch/csrc`` and print the build time;
+   versions; fail unless the port's native framer builds and loads; build
+   the CUDA kernels from ``needletail_tpu_torch/csrc`` and print the build
+   time;
 2. hold each kernel against its plain PyTorch version on the card, bit for
-   bit (tolerance 0: the path is all integer), over k, ASCII and packed
-   input, the three wire validity shapes and several read widths, and the
-   histogram on uniform, skewed and mostly-invalid keys;
-3. the main path at full size: ``hash_count_file`` over the golden FASTQ
-   written 256 times (64M bases) at batch 131072 x 128, through both
-   kernels (launch counts read around this run), to the x256 goldens and
-   256 x the one-copy table of the plain path; then its bases/s (best of 2
-   after a warm-up) and the metered stage table;
-4. ``packed=False`` and an interrupted checkpoint/resume at a smaller depth,
-   equal to the per-copy results;
-5. each kernel's time beside its plain version's at the main path's
-   shapes;
-6. stop every process the run started (the framing pool's resource
+   bit (tolerance 0: the path is all integer): hash keys and key planes
+   over k, ASCII and packed input, the three wire validity shapes and
+   several read widths; the histogram on uniform, skewed and
+   mostly-invalid keys; slot compaction over wide and narrow sorted runs,
+   random flags, an overflowing chunk and ragged lengths;
+3. the hash path at full size: ``hash_count_file`` over the golden FASTQ
+   written 256 times (64M bases) at batch 131072 x 128, through both of
+   its kernels (launch counts read around this run), to the x256 goldens
+   and 256 x the one-copy table of the plain path; then its bases/s (best
+   of 2 after a warm-up) and the metered stage table;
+4. ``packed=False`` and an interrupted checkpoint/resume of the hash path
+   at a smaller depth, equal to the per-copy results;
+5. the exact path at full size: ``count_file`` over the same 64M bases at
+   k=21 and k=31 (sparse arrays), through the key-plane and slot-compaction
+   kernels with the cascade's first pass holding (launch counts and flush
+   routes counted around each run), to 256 x the plain path's one-copy
+   spectrum; then its bases/s (best of 2 after a warm-up), and at k=21
+   the metered stage table and a ``torch.profiler`` view of the device's
+   time by kernel and its busy share;
+6. the exact path at a smaller depth: k=9 dense (the histogram kernel),
+   k=11 densified, ``canonical=False``, ``packed=False``, ``28S.fasta`` at
+   k=31 to its goldens, an interrupted ``count_sparse`` checkpoint/resume,
+   and a mostly-distinct random stream that overflows the cascade;
+7. each kernel's time beside its plain version's, its bound and, where one
+   PyTorch call computes the same function, that call's, at the main
+   paths' shapes, and the times of the flush's sort and of its whole run
+   count (``unique_counts``: the sort, run heads and lengths);
+8. stop every process the run started (the framing pool's resource
    tracker) and fail if a child is still alive; then a
    ``{"kernels": [...]}`` line and the last line
    ``{"ok": true, "device": {...}}``.
@@ -42,23 +58,37 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FQ = ROOT / "tests" / "data" / "PRJNA271013_head.fq"
+FA_28S = ROOT / "tests" / "data" / "28S.fasta"
 
 # per-copy goldens of PRJNA271013_head.fq at k=21
 GOLD_BASES = 250_000
 GOLD_TOTAL_K21 = 209_965
 GOLD_FWD_K21 = 106_181
+# 28S.fasta: bases, and canonical 31-mers in all and kept forward
+GOLD_28S = (738_580, 718_007, 350_983)
 
 K = 21
+COUNT_KS = (21, 31)
 COPIES = 256  # 64M bases, as the JAX package's e2e bench writes it
 SMALL_COPIES = 16
 BATCH = 131072
 MAX_LEN = 128
 SEED = 20261016
+DISTINCT_READS = 16_384  # random 128-base reads: ~1.6M distinct 31-mers
 
 HASH_KS = (1, 16, 17, 21, 31)
 ASCII_WIDTHS = {128: 512, 150: 512, 40_000: 16}  # width -> rows
 PACKED_WIDTHS = {128: 512, 152: 512, 40_000: 16}  # packed widths are x8
 HIST_KEYS = BATCH * MAX_LEN  # 16.7M keys, one main-path batch
+# compaction cases: (lanes, share of flagged lanes); 8192 lanes is the
+# kernel's padding unit, and none of these is a multiple of it
+COMPACT_CASES = ((100, 0.5), (1_000_003, 0.1), (3_000_001, 0.02))
+
+# published H100 SXM peaks: HBM bytes/s, and
+# operations/s outside the tensor cores (the float32 rate; every kernel
+# here is integer work on the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -91,11 +121,26 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(nbytes: int, ops: int) -> tuple:
+    """``(ms, "bytes" | "operations")``: the least time the card could take
+    to move ``nbytes`` through device memory and do ``ops`` operations."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / CORE_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 class Errors:
     """Largest absolute difference seen per kernel (0 when bit-equal)."""
 
     def __init__(self) -> None:
-        self.worst = {"hash_keys": 0, "histogram16": 0}
+        self.worst = {
+            "hash_keys": 0, "histogram16": 0, "key_planes": 0,
+            "compact_slots": 0,
+        }
 
     def hold(self, name: str, what: str, got, want) -> None:
         import torch
@@ -112,8 +157,16 @@ class Errors:
         if err != 0:
             raise AssertionError(f"{name} {what}: max abs error {err}")
 
+    def hold_all(self, name: str, what: str, got, want, parts) -> None:
+        for g, w, part in zip(got, want, parts):
+            if g is None and w is None:
+                continue
+            self.hold(name, f"{what} {part}", g, w)
 
-def check_hash_kernel(errors: Errors, rng) -> int:
+
+def check_window_kernels(errors: Errors, rng) -> int:
+    """Hash keys and key planes (one CUDA source, two modes) over the same
+    cases."""
     import torch
 
     from needletail_tpu_torch.device import kernels as K_
@@ -121,6 +174,8 @@ def check_hash_kernel(errors: Errors, rng) -> int:
     from needletail_tpu_torch.utils.synth import packed_batch, random_reads
 
     dev = torch.device("cuda")
+    hash_parts = ("keys", "total", "fwd")
+    plane_parts = ("hi", "lo", "total", "fwd")
     cases = 0
     for width, rows in ASCII_WIDTHS.items():
         seqs, lengths = random_reads(rng, rows, width, dirty_frac=0.5)
@@ -128,11 +183,19 @@ def check_hash_kernel(errors: Errors, rng) -> int:
         ln = torch.from_numpy(lengths).to(dev)
         for k in HASH_KS:
             for normalized in (True, False):
-                got = K_.canonical_hash_keys(s, ln, k, 16, normalized)
-                want = K_.canonical_hash_keys_plain(s, ln, k, 16, normalized)
                 what = f"ascii L={width} k={k} normalized={normalized}"
-                for g, w, part in zip(got, want, ("keys", "total", "fwd")):
-                    errors.hold("hash_keys", f"{what} {part}", g, w)
+                errors.hold_all(
+                    "hash_keys", what,
+                    K_.canonical_hash_keys(s, ln, k, 16, normalized),
+                    K_.canonical_hash_keys_plain(s, ln, k, 16, normalized),
+                    hash_parts,
+                )
+                errors.hold_all(
+                    "key_planes", what,
+                    K_.canonical_key_planes(s, ln, k, normalized),
+                    K_.canonical_key_planes_plain(s, ln, k, normalized),
+                    plane_parts,
+                )
                 cases += 1
     for width, rows in PACKED_WIDTHS.items():
         for vmode, dirty in ((0, 0.0), (1, 1.0), (2, 0.05)):
@@ -144,11 +207,19 @@ def check_hash_kernel(errors: Errors, rng) -> int:
             codes, ln, vbits, vrow_idx, vrows = unwire(wire, layout)
             vb = resolve_vbits(vbits, vrow_idx, vrows, rows)
             for k in HASH_KS:
-                got = K_.canonical_hash_keys_packed(codes, vb, ln, k, 16)
-                want = K_.canonical_hash_keys_packed_plain(codes, vb, ln, k, 16)
                 what = f"packed vmode={vmode} L={width} k={k}"
-                for g, w, part in zip(got, want, ("keys", "total", "fwd")):
-                    errors.hold("hash_keys", f"{what} {part}", g, w)
+                errors.hold_all(
+                    "hash_keys", what,
+                    K_.canonical_hash_keys_packed(codes, vb, ln, k, 16),
+                    K_.canonical_hash_keys_packed_plain(codes, vb, ln, k, 16),
+                    hash_parts,
+                )
+                errors.hold_all(
+                    "key_planes", what,
+                    K_.canonical_key_planes_packed(codes, vb, ln, k),
+                    K_.canonical_key_planes_packed_plain(codes, vb, ln, k),
+                    plane_parts,
+                )
                 cases += 1
     torch.cuda.synchronize()
     return cases
@@ -186,13 +257,74 @@ def check_histogram(errors: Errors, rng) -> int:
     return len(inputs) + 1
 
 
-def main_path_batch(path: str):
-    """The first batch the main path frames, as device tensors: the
-    packed planes and the ASCII planes at batch 131072 x 128."""
+def hold_compact(errors: Errors, what: str, hi, lo, counts) -> bool:
+    """Slot compaction of one stream against its plain version; returns
+    the kernel's ``ok``."""
+    from needletail_tpu_torch.device import kernels as K_
+
+    got = K_.mxu_compact_slots(hi, lo, counts)
+    errors.hold_all(
+        "compact_slots", what, got, K_.compact_slots_plain(hi, lo, counts),
+        ("hi", "lo", "counts", "ok"),
+    )
+    return bool(got[3])
+
+
+def check_compact_slots(errors: Errors, rng) -> int:
     import numpy as np
     import torch
 
-    from needletail_tpu.io.fast_batch import fast_read_batches
+    from needletail_tpu_torch.device import count as C_
+
+    dev = torch.device("cuda")
+    cases = 0
+    for n, share in COMPACT_CASES:
+        hi = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+                              .astype(np.int32)).to(dev)
+        lo = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+                              .astype(np.int32)).to(dev)
+        flags = rng.random(n) < share
+        counts = torch.from_numpy(
+            np.where(flags, rng.integers(1, 1000, n), 0).astype(np.int32)
+        ).to(dev)
+        # sorted runs: unique_counts of a stream with repeats and sentinels
+        keys = rng.integers(0, max(2, int(n * share)), n)
+        s_hi = torch.from_numpy((keys >> 20).astype(np.int32)).to(dev)
+        s_lo = torch.from_numpy((keys & 0xFFFFF).astype(np.int32)).to(dev)
+        s_lo[torch.from_numpy(rng.random(n) < 0.1).to(dev)] = -1
+        s_hi[s_lo == -1] = -1
+        wide_runs = C_.unique_counts(s_hi, s_lo)
+        narrow_runs = C_.unique_counts(None, s_lo)
+        for what, args in (
+            ("random flags wide", (hi, lo, counts)),
+            ("random flags narrow", (None, lo, counts)),
+            ("sorted runs wide", wide_runs),
+            ("sorted runs narrow", narrow_runs),
+        ):
+            hold_compact(errors, f"{what} n={n}", *args)
+            cases += 1
+    # one chunk with more flags than slots: ok is False, and each slot
+    # still holds the chunk's j-th flagged entry
+    n = 20_000
+    counts = np.where(rng.random(n) < 0.05, 1, 0).astype(np.int32)
+    counts[3000:3300] = 7
+    lo = torch.from_numpy(np.arange(n, dtype=np.int32)).to(dev)
+    c = torch.from_numpy(counts).to(dev)
+    for hi in (lo.flip(0).contiguous(), None):
+        if hold_compact(errors, "overflowing chunk", hi, lo, c):
+            raise AssertionError("compact_slots: overflow not reported")
+        cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def main_path_batch(path: str):
+    """The first batch the main paths frame, as device tensors: the packed
+    planes and the ASCII planes at batch 131072 x 128."""
+    import numpy as np
+    import torch
+
+    from needletail_tpu_torch.io.fast_batch import fast_read_batches
     from needletail_tpu_torch.device.ops import resolve_vbits, unwire
 
     packed = next(iter(fast_read_batches(
@@ -210,40 +342,168 @@ def main_path_batch(path: str):
     return (codes, vb, lengths), (seqs, ln)
 
 
+def main_path_flush(path: str, k: int):
+    """The exact path's flush over the whole file, as ``count_file`` builds
+    it from the key-plane kernel: the sentinel-padded (hi, lo) planes."""
+    import torch
+
+    from needletail_tpu_torch.device import count as C_
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.ops import resolve_vbits, unwire
+    from needletail_tpu_torch.io.fast_batch import fast_read_batches
+
+    parts = []
+    for b in fast_read_batches(path, batch_size=BATCH, max_len=MAX_LEN,
+                               packed=True):
+        buf, layout = b.wire_frame(b.num_reads)
+        codes, ln, vbits, vrow_idx, vrows = unwire(
+            torch.from_numpy(buf).to("cuda"), layout
+        )
+        vb = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
+        hi, lo, _, _ = K_.canonical_key_planes_packed(codes, vb, ln, k)
+        w = hi.shape[1] - k + 1
+        parts.append((hi[:, :w].reshape(-1), lo[:, :w].reshape(-1)))
+    return C_._concat_pad_parts(parts, 1 << 20)
+
+
+# per-lane operations of the functions, counted as the least work that
+# computes them (a rolling window: two shift-ors, a compare and a select
+# per strand update, a validity test, a store), not as the kernel's loop
+WINDOW_OPS_PER_LANE = 8
+HASH_OPS_PER_LANE = WINDOW_OPS_PER_LANE + 3  # two products and a xor
+HIST_OPS_PER_KEY = 2  # a range test and an add
+COMPACT_OPS_PER_LANE = 3  # a flag, a prefix step and a select
+
+
 def time_kernels(errors: Errors, path: str) -> dict:
-    """Kernel and plain times (ms) at the main path's shapes."""
+    """Kernel, plain and library times (ms) and bounds at the main paths'
+    shapes."""
+    import torch
+
+    from needletail_tpu_torch.device import count as C_
     from needletail_tpu_torch.device import kernels as K_
 
+    out = {}
     (codes, vb, lengths), (seqs, ln) = main_path_batch(path)
+    lanes = codes.shape[0] * codes.shape[1] * 4
+    in_packed = nbytes(codes, vb, lengths)
     got = K_.canonical_hash_keys_packed(codes, vb, lengths, K, 16)
     want = K_.canonical_hash_keys_packed_plain(codes, vb, lengths, K, 16)
-    for g, w, part in zip(got, want, ("keys", "total", "fwd")):
-        errors.hold("hash_keys", f"main-path batch {part}", g, w)
+    errors.hold_all("hash_keys", "main-path batch", got, want,
+                    ("keys", "total", "fwd"))
     keys = got[0]
     errors.hold(
         "histogram16", "main-path keys",
         K_.mxu_histogram16(keys), K_.histogram16_plain(keys),
     )
-    return {
-        "hash_keys": cuda_ms(
+    out["hash_keys"] = {
+        "ms": cuda_ms(
             lambda: K_.canonical_hash_keys_packed(codes, vb, lengths, K, 16), 20
         ),
-        "hash_keys_plain": cuda_ms(
+        "plain_ms": cuda_ms(
             lambda: K_.canonical_hash_keys_packed_plain(
                 codes, vb, lengths, K, 16
             ), 5, warmup=1,
         ),
-        "hash_keys_ascii": cuda_ms(
+        "ascii_ms": cuda_ms(
             lambda: K_.canonical_hash_keys(seqs, ln, K, 16), 20
         ),
-        "hash_keys_ascii_plain": cuda_ms(
+        "ascii_plain_ms": cuda_ms(
             lambda: K_.canonical_hash_keys_plain(seqs, ln, K, 16), 5, warmup=1
         ),
-        "histogram16": cuda_ms(lambda: K_.mxu_histogram16(keys), 20),
-        "histogram16_plain": cuda_ms(
-            lambda: K_.histogram16_plain(keys), 5, warmup=1
-        ),
+        "library_ms": None,
+        "bound": bound_ms(in_packed + nbytes(keys) + 16,
+                          lanes * HASH_OPS_PER_LANE),
+        "ascii_bound": bound_ms(nbytes(seqs, ln, keys) + 16,
+                                lanes * HASH_OPS_PER_LANE),
+        "shape": f"[{BATCH}, {MAX_LEN}] k={K} packed",
     }
+    # bincount takes no negative keys: the yardstick counts key + 1 into
+    # 65,537 bins, bin 0 collecting the invalid lanes
+    shifted = (keys + 1).reshape(-1).to(torch.int64)
+    out["histogram16"] = {
+        "ms": cuda_ms(lambda: K_.mxu_histogram16(keys), 20),
+        "plain_ms": cuda_ms(lambda: K_.histogram16_plain(keys), 5, warmup=1),
+        "library_ms": cuda_ms(
+            lambda: torch.bincount(shifted, minlength=(1 << 16) + 1), 20
+        ),
+        "library": "torch.bincount",
+        "bound": bound_ms(nbytes(keys) + 4 * (1 << 16),
+                          keys.numel() * HIST_OPS_PER_KEY),
+        "shape": f"[{BATCH * MAX_LEN}] keys",
+    }
+    del keys, shifted, got, want
+
+    planes = {}
+    for k in COUNT_KS:
+        got = K_.canonical_key_planes_packed(codes, vb, lengths, k)
+        errors.hold_all(
+            "key_planes", f"main-path batch k={k}", got,
+            K_.canonical_key_planes_packed_plain(codes, vb, lengths, k),
+            ("hi", "lo", "total", "fwd"),
+        )
+        out_bytes = nbytes(got[0], got[1]) + 16
+        planes[k] = {
+            "ms": cuda_ms(
+                lambda: K_.canonical_key_planes_packed(codes, vb, lengths, k),
+                20,
+            ),
+            "plain_ms": cuda_ms(
+                lambda: K_.canonical_key_planes_packed_plain(
+                    codes, vb, lengths, k
+                ), 5, warmup=1,
+            ),
+            "ascii_ms": cuda_ms(
+                lambda: K_.canonical_key_planes(seqs, ln, k), 20
+            ),
+            "ascii_plain_ms": cuda_ms(
+                lambda: K_.canonical_key_planes_plain(seqs, ln, k), 5,
+                warmup=1,
+            ),
+            "bound": bound_ms(in_packed + out_bytes,
+                              lanes * WINDOW_OPS_PER_LANE),
+            "ascii_bound": bound_ms(nbytes(seqs, ln) + out_bytes,
+                                    lanes * WINDOW_OPS_PER_LANE),
+        }
+        del got
+    out["key_planes"] = dict(
+        planes[K], library_ms=None, shape=f"[{BATCH}, {MAX_LEN}] k={K} packed",
+        k31=planes[31],
+    )
+    del codes, vb, lengths, seqs, ln
+
+    hi, lo = main_path_flush(path, K)
+    flush_lanes = lo.numel()
+    packed_keys = C_._pack(hi, lo)
+    sort_ms = cuda_ms(lambda: torch.sort(packed_keys), 5, warmup=1)
+    del packed_keys
+    runs_ms = cuda_ms(lambda: C_.unique_counts(hi, lo), 5, warmup=1)
+    runs = C_.unique_counts(hi, lo)
+    del hi, lo
+    if not hold_compact(errors, "main-path flush", *runs):
+        raise AssertionError("compact_slots overflowed on the main-path flush")
+    first = K_.mxu_compact_slots(*runs)
+    # the function needs counts at every lane, and hi/lo only at the
+    # flagged run heads: one 32-byte sector of each plane per 8 lanes that
+    # hold a head
+    heads = (runs[2] > 0).nonzero().reshape(-1)
+    sectors = int(torch.unique(heads // 8).numel())
+    head_bytes = sectors * 32 * (2 if runs[0] is not None else 1)
+    out["compact_slots"] = {
+        "ms": cuda_ms(lambda: K_.mxu_compact_slots(*runs), 20),
+        "plain_ms": cuda_ms(
+            lambda: K_.compact_slots_plain(*runs), 3, warmup=1
+        ),
+        "library_ms": None,
+        "bound": bound_ms(nbytes(runs[2]) + head_bytes + nbytes(*first[:3])
+                          + 1, flush_lanes * COMPACT_OPS_PER_LANE),
+        "shape": f"[{flush_lanes}] lanes k={K}",
+        "flush_sort_ms": sort_ms,
+        "flush_runs_ms": runs_ms,
+        "distinct": int(heads.numel()),
+        "head_sectors": sectors,
+    }
+    return out
 
 
 class _Interrupt(Exception):
@@ -265,11 +525,23 @@ class _StopAfter:
                 raise _Interrupt
 
 
-def write_copies(path: Path, copies: int) -> None:
-    src = FQ.read_bytes()
+def write_copies(path: Path, copies: int, src: Path = FQ) -> None:
+    data = src.read_bytes()
     with open(path, "wb") as f:
         for _ in range(copies):
-            f.write(src)
+            f.write(data)
+
+
+def write_distinct_reads(path: Path, rng) -> None:
+    """Clean random 128-base reads as FASTA: nearly every 31-mer in them
+    occurs once."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    seqs = bases[rng.integers(0, 4, (DISTINCT_READS, MAX_LEN))]
+    with open(path, "wb") as f:
+        for i, row in enumerate(seqs):
+            f.write(b">r%d\n" % i + row.tobytes() + b"\n")
 
 
 def expect(result, copies: int, table1, what: str) -> None:
@@ -280,6 +552,26 @@ def expect(result, copies: int, table1, what: str) -> None:
     if (n_bases, total, fwd) != want:
         raise AssertionError(f"{what}: {(n_bases, total, fwd)} != {want}")
     if table.dtype != np.int64 or not np.array_equal(table, table1 * copies):
+        raise AssertionError(f"{what}: table != {copies} x the one-copy table")
+
+
+def expect_spectrum(result, copies: int, ref, what: str) -> None:
+    """``count_file`` output equal to ``copies`` x the one-copy ``ref``:
+    the same keys, counts and bases scaled."""
+    import numpy as np
+
+    (n_bases, spec), (n1, spec1) = result, ref
+    if n_bases != n1 * copies:
+        raise AssertionError(f"{what}: {n_bases} bases != {copies} x {n1}")
+    if isinstance(spec1, tuple):
+        (keys, counts), (keys1, counts1) = spec, spec1
+        if keys.dtype != np.uint64 or counts.dtype != np.int64:
+            raise AssertionError(f"{what}: dtypes {keys.dtype}, {counts.dtype}")
+        if not np.array_equal(keys, keys1):
+            raise AssertionError(f"{what}: keys differ from the one-copy keys")
+        if not np.array_equal(counts, counts1 * copies):
+            raise AssertionError(f"{what}: counts != {copies} x one copy")
+    elif spec.dtype != np.int64 or not np.array_equal(spec, spec1 * copies):
         raise AssertionError(f"{what}: table != {copies} x the one-copy table")
 
 
@@ -319,6 +611,232 @@ def stop_children() -> dict:
     return child_processes()
 
 
+def run_exact_main_path(big: Path, card: str) -> dict:
+    """Phase 5: ``count_file`` over 64M bases at each of ``COUNT_KS``;
+    returns the launch counts, flushes and timings of each k, and at k=21
+    the metered stages and the device profile of one more run."""
+    from needletail_tpu_torch.utils.profiling import ThroughputMeter
+    from needletail_tpu_torch.device import count as C_
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.pipeline import count_file
+
+    kw = dict(batch_size=BATCH, max_len=MAX_LEN, sparse_format="arrays")
+    out = {}
+    for k in COUNT_KS:
+        ref = count_file(str(FQ), k, device="cpu", host_workers=1, **kw)
+        if k == K and int(ref[1][1].sum()) != GOLD_TOTAL_K21:
+            raise AssertionError(f"plain one-copy k={k}: {ref[1][1].sum()}")
+        K_.reset_launches()
+        C_.reset_flush_routes()
+        t0 = time.perf_counter()
+        result = count_file(str(big), k, device="cuda", **kw)
+        first_s = time.perf_counter() - t0
+        launches = dict(K_.LAUNCHES)
+        flushes = {r: n for r, n in C_.FLUSH_ROUTES.items() if n}
+        expect_spectrum(result, COPIES, ref, f"exact main path k={k}")
+        total = int(result[1][1].sum())
+        if k == K and total != GOLD_TOTAL_K21 * COPIES:
+            raise AssertionError(f"exact main path k={k}: {total} k-mers")
+        for name in ("key_planes", "compact_slots"):
+            if launches[name] <= 0:
+                raise AssertionError(f"exact main path k={k} launched no {name}")
+        # one flush, its runs compacted by the cascade
+        if flushes != {"cascade": 1}:
+            raise AssertionError(f"exact main path k={k}: flushes {flushes}")
+        log(f"exact main path k={k}: {result[0]} bases, {total} k-mers, "
+            f"{len(result[1][0])} distinct; launches {launches}; flushes "
+            f"{flushes}; first run {first_s:.3f} s")
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            again = count_file(str(big), k, device="cuda", **kw)
+            best = min(best, time.perf_counter() - t0)
+            expect_spectrum(again, COPIES, ref, f"timed exact path k={k}")
+        log(f"exact e2e k={k}: best of 2 {best:.4f} s = "
+            f"{result[0] / best:.6e} bases/s ({card})")
+        out[k] = {
+            "launches": launches, "flushes": flushes, "best_s": best,
+            "bases_per_s": result[0] / best, "distinct": len(result[1][0]),
+        }
+        if k == K:
+            meter = ThroughputMeter()
+            expect_spectrum(count_file(str(big), k, device="cuda", meter=meter,
+                                       **kw), COPIES, ref, "metered exact path")
+            log(f"exact metered stages k={k}:\n" + meter.report())
+            log("exact metered stages json: " + json.dumps(meter.as_dict()))
+            prof = device_profile(
+                lambda: count_file(str(big), k, device="cuda", **kw)
+            )
+            log(f"exact device profile k={k}: " + json.dumps(prof))
+        del result, again, ref
+    return out
+
+
+def device_profile(fn) -> dict:
+    """Wall seconds of ``fn()`` under ``torch.profiler``, and the device
+    time (ms) of its kernels and copies, in all and by name (largest
+    first).  Streams that overlap count twice, so the busy share is an
+    upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for evt in prof.key_averages():
+        if "CUDA" not in str(evt.device_type):
+            continue  # host events; their kernels are listed on their own
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            by_name[evt.key[:80]] = (us / 1e3, evt.count)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "wall_s": wall,
+        "device_ms": busy_ms,
+        "busy_share": busy_ms / 1e3 / wall,
+        "top_ms_calls": [[name, ms, n] for name, (ms, n) in top],
+    }
+
+
+def run_exact_small(tmp: Path, small: Path, rng) -> None:
+    """Phase 6: the exact path's other routes at a smaller depth."""
+    import numpy as np
+    import torch
+
+    from needletail_tpu_torch.checkpoint import load_stream_checkpoint
+    from needletail_tpu_torch.device import count as C_
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.pipeline import count_file
+    from needletail_tpu_torch.io.fast_batch import fast_read_batches
+
+    kw = dict(batch_size=BATCH, max_len=MAX_LEN, sparse_format="arrays")
+    one = lambda k, **o: count_file(  # noqa: E731
+        str(FQ), k, device="cpu", host_workers=1, **{**kw, **o}
+    )
+    cases = (
+        (9, {}, "k=9 dense"),
+        (11, {}, "k=11 densified"),
+        (21, {"canonical": False}, "canonical=False"),
+        (21, {"packed": False}, "packed=False"),
+    )
+    for k, opts, what in cases:
+        K_.reset_launches()
+        C_.reset_flush_routes()
+        got = count_file(str(small), k, device="cuda", **kw, **opts)
+        launches = dict(K_.LAUNCHES)
+        flushes = {r: n for r, n in C_.FLUSH_ROUTES.items() if n}
+        expect_spectrum(got, SMALL_COPIES, one(k, **opts), what)
+        if k == 9 and launches["histogram16"] <= 0:
+            raise AssertionError("k=9 dense launched no histogram16")
+        if opts.get("canonical", True) and k > 9 and launches["key_planes"] <= 0:
+            raise AssertionError(f"{what} launched no key_planes")
+        log(f"{what}: equal to {SMALL_COPIES} x the plain one-copy result; "
+            f"launches {launches}; flushes {flushes}")
+
+    # 28S at k=31, to the README goldens; the kernel's own tallies give
+    # the forward count
+    got = count_file(str(FA_28S), 31, device="cuda", host_workers=1,
+                     sparse_format="arrays")
+    want = count_file(str(FA_28S), 31, device="cpu", host_workers=1,
+                      sparse_format="arrays")
+    expect_spectrum(got, 1, want, "28S k=31")
+    total = fwd = 0
+    for b in fast_read_batches(str(FA_28S), batch_size=512):
+        _, _, t, f = K_.canonical_key_planes(
+            torch.from_numpy(np.ascontiguousarray(b.seqs)).to("cuda"),
+            torch.from_numpy(b.lengths.astype(np.int32)).to("cuda"), 31,
+        )
+        total += int(t)
+        fwd += int(f)
+    if (got[0], int(got[1][1].sum()), total, fwd) != (
+        GOLD_28S[0], GOLD_28S[1], GOLD_28S[1], GOLD_28S[2]
+    ):
+        raise AssertionError(f"28S k=31: {got[0]}, {got[1][1].sum()}, "
+                             f"{total}, {fwd} != {GOLD_28S}")
+    log(f"28S k=31: {got[0]} bases, {total} k-mers, {fwd} forward")
+
+    # an interrupted count_sparse run and its resume
+    ck = tmp / "count.npz"
+    ckw = dict(batch_size=8192, max_len=MAX_LEN, sparse_format="arrays",
+               device="cuda", host_workers=1)
+    try:
+        count_file(str(small), K, checkpoint_every=1, checkpoint_path=str(ck),
+                   meter=_StopAfter(3), **ckw)
+    except _Interrupt:
+        pass
+    else:
+        raise AssertionError("the interrupted exact run ran to its end")
+    saved = load_stream_checkpoint(ck)
+    if saved["kind"] != "count_sparse" or not (
+        0 < saved["file_offset"] < small.stat().st_size
+    ):
+        raise AssertionError(f"checkpoint {saved['kind']} at "
+                             f"{saved['file_offset']}")
+    expect_spectrum(
+        count_file(str(small), K, resume_from=str(ck), **ckw),
+        SMALL_COPIES, one(K), "resumed exact run",
+    )
+    log(f"count_sparse resume from byte {saved['file_offset']}: equal to "
+        f"{SMALL_COPIES} x the one-copy spectrum")
+
+    # a mostly-distinct stream overflows the cascade, and its sorted runs
+    # are pulled whole and filtered on the host
+    distinct = tmp / "distinct.fa"
+    write_distinct_reads(distinct, rng)
+    C_.reset_flush_routes()
+    got = count_file(str(distinct), 31, device="cuda", host_workers=1,
+                     sparse_format="arrays", max_len=MAX_LEN)
+    flushes = {r: n for r, n in C_.FLUSH_ROUTES.items() if n}
+    want = count_file(str(distinct), 31, device="cpu", host_workers=1,
+                      sparse_format="arrays", max_len=MAX_LEN)
+    expect_spectrum(got, 1, want, "mostly-distinct stream")
+    if flushes != {"host_filter": 1}:
+        raise AssertionError(f"mostly-distinct stream: flushes {flushes}")
+    log(f"mostly-distinct stream: {len(got[1][0])} distinct of "
+        f"{int(got[1][1].sum())} 31-mers; flushes {flushes}")
+
+
+def kernel_entry(name, source, replaces, launches, worst, t) -> dict:
+    ms, by = t["bound"]
+    entry = {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": ms,
+        "bound_by": by,
+        "library_ms": t["library_ms"],
+        "tolerance": 0,
+        "shape": t["shape"],
+    }
+    for key in ("ascii_ms", "ascii_plain_ms", "library", "flush_sort_ms",
+                "flush_runs_ms", "distinct", "head_sectors"):
+        if key in t:
+            entry[key] = t[key]
+    if "ascii_bound" in t:
+        entry["ascii_bound_ms"] = t["ascii_bound"][0]
+    if "k31" in t:
+        k31 = t["k31"]
+        entry["k31"] = {
+            "ms": k31["ms"], "plain_ms": k31["plain_ms"],
+            "ascii_ms": k31["ascii_ms"],
+            "ascii_plain_ms": k31["ascii_plain_ms"],
+            "bound_ms": k31["bound"][0],
+        }
+    return entry
+
+
 def run() -> int:
     import torch
 
@@ -333,8 +851,8 @@ def run() -> int:
 
     import numpy as np
 
-    from needletail_tpu.io import native
-    from needletail_tpu.utils.profiling import ThroughputMeter
+    from needletail_tpu_torch.io import native
+    from needletail_tpu_torch.utils.profiling import ThroughputMeter
     from needletail_tpu_torch.checkpoint import load_stream_checkpoint
     from needletail_tpu_torch.device import _build
     from needletail_tpu_torch.device import kernels as K_
@@ -345,10 +863,14 @@ def run() -> int:
     log(card)
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
-    if native.available():
-        log("native framer: available")
-    else:
-        log("native framer: MISSING — framing runs the pure-Python path")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(
+            "the port's native framer did not build or load: framing would "
+            "run in pure Python"
+        )
+    log(f"native framer: {native.get_lib()._name} "
+        f"({time.perf_counter() - t0:.2f} s)")
     t0 = time.perf_counter()
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -362,10 +884,12 @@ def run() -> int:
     rng = np.random.default_rng(SEED)
     errors = Errors()
     t0 = time.perf_counter()
-    n_hash = check_hash_kernel(errors, rng)
+    n_window = check_window_kernels(errors, rng)
     n_hist = check_histogram(errors, rng)
-    log(f"kernel checks: hash_keys {n_hash} cases, histogram16 {n_hist} "
-        f"cases equal to the plain versions at tolerance 0 in "
+    n_compact = check_compact_slots(errors, rng)
+    log(f"kernel checks: hash_keys and key_planes {n_window} cases each, "
+        f"histogram16 {n_hist} cases, compact_slots {n_compact} cases equal "
+        f"to the plain versions at tolerance 0 in "
         f"{time.perf_counter() - t0:.1f} s")
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -377,7 +901,7 @@ def run() -> int:
         write_copies(small, SMALL_COPIES)
         n_bytes = big.stat().st_size
 
-        # ---- 3. main path at full size --------------------------------
+        # ---- 3. hash path at full size --------------------------------
         ref = hash_count_file(
             str(FQ), K, batch_size=BATCH, max_len=MAX_LEN, device="cpu",
             host_workers=1,
@@ -392,8 +916,8 @@ def run() -> int:
         first_s = time.perf_counter() - t0
         launches = dict(K_.LAUNCHES)
         expect(result, COPIES, table1, "main path")
-        for name, n in launches.items():
-            if n <= 0:
+        for name in ("hash_keys", "histogram16"):
+            if launches[name] <= 0:
                 raise AssertionError(f"main path launched no {name} kernel")
         log(f"main path: {result[0]} bases, {result[1]} windows, {result[2]} "
             f"forward; launches {launches}; first run {first_s:.3f} s")
@@ -450,10 +974,17 @@ def run() -> int:
         log(f"packed=False and resume from byte {saved['file_offset']}: "
             "equal to the per-copy results")
 
-        # ---- 5. kernel times at the main path's shapes -----------------
-        times = time_kernels(errors, str(big))
+        # ---- 5. the exact path at full size ----------------------------
+        exact = run_exact_main_path(big, card)
 
-    # ---- 6. nothing this run started outlives it ----------------------
+        # ---- 6. the exact path's other routes --------------------------
+        run_exact_small(tmp, small, rng)
+
+        # ---- 7. kernel times at the main paths' shapes -----------------
+        times = time_kernels(errors, str(big))
+        log("kernel times: " + json.dumps(times))
+
+    # ---- 8. nothing this run started outlives it ----------------------
     running = child_processes()
     log(f"children before the stop: {running or 'none'}")
     left = stop_children()
@@ -462,39 +993,40 @@ def run() -> int:
     log("children after the stop: none")
 
     name, power = [s.strip() for s in card.split(",", 1)]
+    pk = "needletail_tpu/device/pallas_kernels.py"
     kernels = [
-        {
-            "name": "hash_keys",
-            "route": "cuda",
-            "source": "needletail_tpu_torch/csrc/hash_keys.cu",
-            "replaces": "needletail_tpu/device/pallas_kernels.py:368",
-            "also_replaces": "needletail_tpu/device/pallas_kernels.py:301",
-            "launches": launches["hash_keys"],
-            "max_abs_err": errors.worst["hash_keys"],
-            "tolerance": 0,
-            "ms": times["hash_keys"],
-            "plain_ms": times["hash_keys_plain"],
-            "ascii_ms": times["hash_keys_ascii"],
-            "ascii_plain_ms": times["hash_keys_ascii_plain"],
-            "shape": f"[{BATCH}, {MAX_LEN}] k={K}",
-            "card": name,
-            "power_limit": power,
-        },
-        {
-            "name": "histogram16",
-            "route": "cuda",
-            "source": "needletail_tpu_torch/csrc/histogram16.cu",
-            "replaces": "needletail_tpu/device/pallas_kernels.py:503",
-            "launches": launches["histogram16"],
-            "max_abs_err": errors.worst["histogram16"],
-            "tolerance": 0,
-            "ms": times["histogram16"],
-            "plain_ms": times["histogram16_plain"],
-            "shape": f"[{BATCH * MAX_LEN}] keys",
-            "card": name,
-            "power_limit": power,
-        },
+        kernel_entry(
+            "hash_keys", "needletail_tpu_torch/csrc/hash_keys.cu", f"{pk}:368",
+            launches["hash_keys"], errors.worst["hash_keys"],
+            times["hash_keys"],
+        ),
+        kernel_entry(
+            "histogram16", "needletail_tpu_torch/csrc/histogram16.cu",
+            f"{pk}:503", launches["histogram16"], errors.worst["histogram16"],
+            times["histogram16"],
+        ),
+        kernel_entry(
+            "key_planes", "needletail_tpu_torch/csrc/hash_keys.cu", f"{pk}:348",
+            exact[K]["launches"]["key_planes"], errors.worst["key_planes"],
+            times["key_planes"],
+        ),
+        kernel_entry(
+            "compact_slots", "needletail_tpu_torch/csrc/compact_slots.cu",
+            f"{pk}:672", exact[K]["launches"]["compact_slots"],
+            errors.worst["compact_slots"], times["compact_slots"],
+        ),
     ]
+    kernels[0]["also_replaces"] = f"{pk}:301"
+    kernels[2]["also_replaces"] = f"{pk}:324"
+    for entry in kernels:
+        entry["card"] = name
+        entry["power_limit"] = power
+    log("exact e2e: " + json.dumps({
+        f"k{k}": {"bases_per_s": v["bases_per_s"], "best_s": v["best_s"],
+                  "distinct": v["distinct"], "card": name,
+                  "power_limit": power}
+        for k, v in exact.items()
+    }))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

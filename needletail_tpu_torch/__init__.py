@@ -3,17 +3,24 @@
 The JAX package ``needletail_tpu`` stays the reference; this package runs
 its device paths with PyTorch on an NVIDIA Hopper GPU, through kernels
 written by hand in CUDA C++ (``csrc/``), and is held bit for bit against
-the JAX functions on the same inputs.  It imports no JAX: the host side
-(parsers, framers, batch planes) is reused read-only from
-``needletail_tpu``'s jax-free modules.
+the JAX functions on the same inputs.  It imports no JAX and nothing of
+``needletail_tpu``: the host side (parsers, framers, batch planes, codecs)
+is the port's own copy, and its native framer builds from
+``csrc/framer.cpp``.
 
 Layout mirrors the JAX package:
+  * ``batch``, ``encoding``, ``errors``, ``parser``, ``io`` — the host side:
+    batch planes and the one-buffer wire, the framers (``io.fast_batch``,
+    ``io.native``), codecs, and the multi-worker front ``io.framing``.
   * ``device.ops``       — wire transport: ``unwire``, ``unpack_codes``,
     ``expand_vrows``, ``resolve_vbits``, ``encode_2bit``.
+  * ``device.kmers``     — packed and canonical k-mer windows.
   * ``device.kernels``   — the hand-written kernels and their plain
     PyTorch versions.
-  * ``device.pipeline``  — ``hash_count_file``.
+  * ``device.count``     — dense spectra, sorted run counts, the
+    slot-compaction cascade, the streaming sparse accumulator.
+  * ``device.pipeline``  — ``hash_count_file`` and ``count_file``.
   * ``checkpoint``       — stream checkpoints, file-compatible with JAX's.
-  * ``io.framing``       — the multi-worker framing front.
-  * ``cli``              — ``python -m needletail_tpu_torch.cli hash-count``.
+  * ``cli``              — ``python -m needletail_tpu_torch.cli count`` and
+    ``hash-count``.
 """

@@ -127,9 +127,9 @@ def checkpoint_source(
     re-frames ``[start_offset, EOF)`` of an uncompressed or BGZF file.
     With ``require_offsets`` (checkpoints are being written) a framer that
     reports no offsets is refused up front."""
-    from needletail_tpu.io.bgzf import is_bgzf
-    from needletail_tpu.io.compression import sniff_compression
-    from needletail_tpu.io.fast_batch import (
+    from .io.bgzf import is_bgzf
+    from .io.compression import sniff_compression
+    from .io.fast_batch import (
         _effective_packed_max_len,
         fast_read_batches_bgzf,
         fast_read_batches_range,
@@ -154,7 +154,7 @@ def checkpoint_source(
             "streams cannot seek to a decompressed offset"
         )
     if require_offsets:
-        from needletail_tpu.io import native
+        from .io import native
 
         if not native.available():
             raise ValueError(

@@ -1,23 +1,31 @@
-// Fused canonical k-mer window + hash kernel of the hash-count path.
+// Fused canonical k-mer window kernel of the hash-count and exact paths.
 //
 // Replaces needletail_tpu/device/pallas_kernels.py:canonical_hash_keys
 // (ASCII bytes in) and canonical_hash_keys_packed (2-bit codes plus an
-// optional validity bitplane in).  For every lane p of a [rows, L] read
-// plane it computes:
+// optional validity bitplane in), and in its planes mode
+// canonical_key_planes / canonical_key_planes_packed.  For every lane p
+// of a [rows, L] read plane it computes:
 //
 //   code      A0 C1 G2 T3 (ASCII: case-folded with & 0xDF, U counts as T
 //             only when `normalized`); anything else is invalid
 //   valid     all k codes are bases and p + k <= length[row]
 //   canonical integer min of the forward window (first base most
 //             significant) and its reverse complement; a tie keeps forward
-//   key       ((lo * 0x9E3779B1) ^ (hi * 0x85EBCA77)) mod 2^32 & mask,
-//             hi = canonical >> 32, lo = low 32 bits; -1 where invalid
+//   hi, lo    canonical >> 32 and its low 32 bits (for k <= 16, hi = 0)
+//
+// and writes, by mode, either
+//
+//   keys      ((lo * 0x9E3779B1) ^ (hi * 0x85EBCA77)) mod 2^32 & mask,
+//             -1 where invalid                          (hash keys)
+//   hi, lo    two int32 planes of the uint32 bit patterns, both
+//             0xFFFFFFFF (-1) where invalid             (key planes)
 //
 // plus the tallies total (valid windows) and fwd (valid windows taken
-// from the forward strand), added to two 64-bit counters.
+// from the forward strand), added to two 64-bit counters.  The planes
+// are what the Pallas planes kernel writes before its bitcast to uint32.
 //
-// What bounds it on Hopper: the key plane it writes (4 bytes a lane) and
-// the per-lane window build (k shared-memory reads and shifts).  The TPU
+// What bounds it on Hopper: the planes it writes (4 or 8 bytes a lane)
+// and the per-lane window build (k shared-memory reads and shifts).  The TPU
 // kernel built windows with doubling ladders of rolled planes because a
 // TPU lane has no 64-bit integers; here one thread holds a whole k <= 31
 // window in a uint64_t.  Each block stages one tile of codes (plus the
@@ -72,9 +80,13 @@ __device__ __forceinline__ uint8_t load_code(const Planes& in, long long row,
   return c;
 }
 
+// kPlanes: write the canonical (hi, lo) planes to keys / keys_lo instead
+// of the hash keys to keys
+template <bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
     hash_keys_kernel(Planes in, const int32_t* __restrict__ lengths,
                      int32_t* __restrict__ keys,
+                     int32_t* __restrict__ keys_lo,
                      unsigned long long* __restrict__ tallies, long long rows,
                      long long L, int k, uint32_t mask) {
   __shared__ uint8_t tile[kThreads + kMaxK];
@@ -115,8 +127,13 @@ __global__ void __launch_bounds__(kThreads)
       const uint64_t canon = use_rc ? rc : fwd;
       const uint32_t hi = (uint32_t)(canon >> 32);
       const uint32_t lo = (uint32_t)canon;
-      const uint32_t h = ((lo * 0x9E3779B1u) ^ (hi * 0x85EBCA77u)) & mask;
-      keys[g] = valid ? (int32_t)h : -1;
+      if (kPlanes) {
+        keys[g] = valid ? (int32_t)hi : -1;
+        keys_lo[g] = valid ? (int32_t)lo : -1;
+      } else {
+        const uint32_t h = ((lo * 0x9E3779B1u) ^ (hi * 0x85EBCA77u)) & mask;
+        keys[g] = valid ? (int32_t)h : -1;
+      }
     }
     // both counts come back to every thread; the barrier also keeps the
     // next tile's staging from overwriting codes still being read
@@ -129,15 +146,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-// keys [rows, L] int32 and tallies [2] (zeroed by the caller) are written
-// on `stream`.  Returns cudaGetLastError() after the launch.
-extern "C" int nt_hash_keys(const void* data, const void* vbits,
-                            const void* lengths, void* keys, void* tallies,
-                            long long rows, long long L, long long stride,
-                            long long vstride, int k, unsigned int mask,
-                            int packed, int normalized, void* stream) {
+template <bool kPlanes>
+int launch(const void* data, const void* vbits, const void* lengths,
+           void* keys, void* keys_lo, void* tallies, long long rows,
+           long long L, long long stride, long long vstride, int k,
+           unsigned int mask, int packed, int normalized, void* stream) {
   if (k < 1 || k > kMaxK || rows <= 0 || L <= 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -151,8 +164,34 @@ extern "C" int nt_hash_keys(const void* data, const void* vbits,
   Planes in{static_cast<const uint8_t*>(data),
             static_cast<const uint8_t*>(vbits), stride, vstride, packed,
             normalized};
-  hash_keys_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, static_cast<const int32_t*>(lengths), static_cast<int32_t*>(keys),
-      static_cast<unsigned long long*>(tallies), rows, L, k, mask);
+  hash_keys_kernel<kPlanes>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          in, static_cast<const int32_t*>(lengths),
+          static_cast<int32_t*>(keys), static_cast<int32_t*>(keys_lo),
+          static_cast<unsigned long long*>(tallies), rows, L, k, mask);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// keys [rows, L] int32 and tallies [2] (zeroed by the caller) are written
+// on `stream`.  Returns cudaGetLastError() after the launch.
+extern "C" int nt_hash_keys(const void* data, const void* vbits,
+                            const void* lengths, void* keys, void* tallies,
+                            long long rows, long long L, long long stride,
+                            long long vstride, int k, unsigned int mask,
+                            int packed, int normalized, void* stream) {
+  return launch<false>(data, vbits, lengths, keys, nullptr, tallies, rows, L,
+                       stride, vstride, k, mask, packed, normalized, stream);
+}
+
+// The planes mode: hi and lo [rows, L] int32 and tallies [2] (zeroed by
+// the caller) are written on `stream`.
+extern "C" int nt_key_planes(const void* data, const void* vbits,
+                             const void* lengths, void* hi, void* lo,
+                             void* tallies, long long rows, long long L,
+                             long long stride, long long vstride, int k,
+                             int packed, int normalized, void* stream) {
+  return launch<true>(data, vbits, lengths, hi, lo, tallies, rows, L, stride,
+                      vstride, k, 0u, packed, normalized, stream);
 }

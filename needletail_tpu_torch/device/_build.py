@@ -1,4 +1,4 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native code.
 
 Each ``needletail_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into its
 own shared library with a plain C interface under
@@ -6,6 +6,9 @@ own shared library with a plain C interface under
 ``ctypes``.  The build runs at first CUDA use, never at import, so a
 CPU-only install needs no compiler.  All stale sources compile at once,
 one ``nvcc`` process each.  A library newer than its source is reused.
+
+The host framer ``csrc/framer.cpp`` builds the same way with the host C++
+compiler (:func:`build_framer`), at the first framing call.
 """
 
 from __future__ import annotations
@@ -16,20 +19,24 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "CXX_FLAGS", "build_all", "build_framer", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "needletail_tpu_torch"
 
-SOURCES = ("hash_keys", "histogram16")
+SOURCES = ("hash_keys", "histogram16", "compact_slots")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# no -march=native: SIMD comes from per-function target("avx2") clones
+# behind a runtime CPU check in framer.cpp
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall", "-Wextra")
+FRAMER = "ntframer"
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -114,3 +121,25 @@ def load(name: str) -> ctypes.CDLL:
             _build_locked()
             _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return _libs[name]
+
+
+def build_framer() -> Optional[Path]:
+    """Path of the host framer library, compiling ``csrc/framer.cpp`` with
+    ``$CXX`` (default ``g++``) when the library is missing or older than
+    its source; None when the compiler or the build fails (the framers
+    then run in pure Python)."""
+    so = _lib_path(FRAMER)
+    src = CSRC / "framer.cpp"
+    if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".so.{os.getpid()}.tmp")
+    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, str(src), "-o", str(tmp)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+    except (subprocess.SubprocessError, OSError):
+        tmp.unlink(missing_ok=True)
+        return None
+    # concurrent builds each write their own file; the last rename wins
+    os.replace(tmp, so)
+    return so

@@ -1,13 +1,22 @@
-"""The hash-count path's kernels, written by hand in CUDA for Hopper, each
-beside its plain PyTorch version.
+"""The port's kernels, written by hand in CUDA for Hopper, each beside its
+plain PyTorch version.
 
 Counterpart of ``needletail_tpu/device/pallas_kernels.py``:
 
   * :func:`canonical_hash_keys` / :func:`canonical_hash_keys_packed` run
     ``csrc/hash_keys.cu`` (replaces the Pallas ``_keys_kernel`` through
     ``_run_tally``, pallas_kernels.py:183/:251);
+  * :func:`canonical_key_planes` / :func:`canonical_key_planes_packed` run
+    the planes mode of ``csrc/hash_keys.cu`` (replaces ``_planes_kernel``,
+    :193, through ``canonical_key_planes(_packed)``, :324/:348);
   * :func:`mxu_histogram16` runs ``csrc/histogram16.cu`` (replaces the
-    Pallas ``_packed_hist_kernel`` / ``_hist_kernel``, :408/:469).
+    Pallas ``_packed_hist_kernel`` / ``_hist_kernel``, :408/:469);
+  * :func:`mxu_compact_slots` runs ``csrc/compact_slots.cu`` (replaces
+    ``_compact_kernel`` through ``mxu_compact_slots``, :585/:672).
+
+Key planes are int32 tensors holding uint32 bit patterns, with the
+sentinel 0xFFFFFFFF (-1) on invalid lanes, as the Pallas planes kernel
+writes them before its bitcast to uint32.
 
 Each source says what bounds its kernel on the card and what its design
 does about that.  A wrapper takes the plain version only for tensors on
@@ -28,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from .kmers import u32_bits
 from .ops import _INVALID, encode_2bit, unpack_codes
 
 __all__ = [
@@ -35,8 +45,14 @@ __all__ = [
     "canonical_hash_keys_packed",
     "canonical_hash_keys_plain",
     "canonical_hash_keys_packed_plain",
+    "canonical_key_planes",
+    "canonical_key_planes_packed",
+    "canonical_key_planes_plain",
+    "canonical_key_planes_packed_plain",
     "mxu_histogram16",
     "histogram16_plain",
+    "mxu_compact_slots",
+    "compact_slots_plain",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -45,7 +61,9 @@ HASH_C1 = 0x9E3779B1
 HASH_C2 = 0x85EBCA77
 BINS = 1 << 16
 
-LAUNCHES: Dict[str, int] = {"hash_keys": 0, "histogram16": 0}
+LAUNCHES: Dict[str, int] = {
+    "hash_keys": 0, "histogram16": 0, "key_planes": 0, "compact_slots": 0,
+}
 
 
 def reset_launches() -> None:
@@ -91,10 +109,11 @@ def _check_contiguous(**tensors: Optional[torch.Tensor]) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _hash_keys_from_codes(
-    codes: torch.Tensor, lengths: torch.Tensor, k: int, table_bits: int
+def _canonical_from_codes(
+    codes: torch.Tensor, lengths: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version over per-base codes ``[B, L]`` (255 invalid)."""
+    """``(canonical, valid, use_rc)`` over ``[B, L]`` per-base codes (255
+    invalid): the int64 canonical window starting at each lane."""
     b, l = codes.shape
     c = torch.nn.functional.pad(
         codes.to(torch.int64), (0, k - 1), value=_INVALID
@@ -111,7 +130,14 @@ def _hash_keys_from_codes(
     pos = torch.arange(l, device=c.device)[None, :]
     valid &= pos + k <= lengths.to(torch.int64)[:, None]
     use_rc = fwd > rc
-    canon = torch.where(use_rc, rc, fwd)
+    return torch.where(use_rc, rc, fwd), valid, use_rc
+
+
+def _hash_keys_from_codes(
+    codes: torch.Tensor, lengths: torch.Tensor, k: int, table_bits: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version over per-base codes ``[B, L]`` (255 invalid)."""
+    canon, valid, use_rc = _canonical_from_codes(codes, lengths, k)
     hi = canon >> 32
     lo = canon & 0xFFFFFFFF
     # the int64 products may wrap; their low 32 bits are the uint32 ones
@@ -150,6 +176,39 @@ def canonical_hash_keys_packed_plain(
     )
 
 
+def _key_planes_from_codes(
+    codes: torch.Tensor, lengths: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain key planes over per-base codes ``[B, L]`` (255 invalid)."""
+    canon, valid, use_rc = _canonical_from_codes(codes, lengths, k)
+    sentinel = torch.tensor(-1, dtype=torch.int32, device=canon.device)
+    hi = torch.where(valid, u32_bits(canon >> 32), sentinel)
+    lo = torch.where(valid, u32_bits(canon), sentinel)
+    return hi, lo, valid.sum(), (valid & ~use_rc).sum()
+
+
+def canonical_key_planes_plain(
+    seqs: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    normalized: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`canonical_key_planes`."""
+    _check_k(k, 0)
+    return _key_planes_from_codes(encode_2bit(seqs, normalized), lengths, k)
+
+
+def canonical_key_planes_packed_plain(
+    codes: torch.Tensor,
+    vbits: Optional[torch.Tensor],
+    lengths: torch.Tensor,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`canonical_key_planes_packed`."""
+    _check_k(k, 0)
+    return _key_planes_from_codes(unpack_codes(codes, vbits), lengths, k)
+
+
 def _hash_keys_lib() -> ctypes.CDLL:
     lib = _build.load("hash_keys")
     fn = lib.nt_hash_keys
@@ -159,6 +218,9 @@ def _hash_keys_lib() -> ctypes.CDLL:
             p, p, p, p, p, ll, ll, ll, ll, i, ctypes.c_uint, i, i, p,
         ]
         fn.restype = i
+        planes = lib.nt_key_planes
+        planes.argtypes = [p, p, p, p, p, p, ll, ll, ll, ll, i, i, i, p]
+        planes.restype = i
     return lib
 
 
@@ -203,6 +265,112 @@ def _launch_hash_keys(
     return keys, tallies[0], tallies[1]
 
 
+def _launch_key_planes(
+    data: torch.Tensor,
+    vbits: Optional[torch.Tensor],
+    lengths: torch.Tensor,
+    lanes: int,
+    k: int,
+    packed: bool,
+    normalized: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check_contiguous(data=data, vbits=vbits, lengths=lengths)
+    b = data.shape[0]
+    hi = torch.empty((b, lanes), dtype=torch.int32, device=data.device)
+    lo = torch.empty_like(hi)
+    tallies = torch.zeros(2, dtype=torch.int64, device=data.device)
+    if b == 0 or lanes == 0:
+        return hi, lo, tallies[0], tallies[1]
+    fn = _hash_keys_lib().nt_key_planes
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = fn(
+            data.data_ptr(),
+            None if vbits is None else vbits.data_ptr(),
+            lengths.data_ptr(),
+            hi.data_ptr(),
+            lo.data_ptr(),
+            tallies.data_ptr(),
+            b,
+            lanes,
+            data.shape[1],
+            0 if vbits is None else vbits.shape[1],
+            k,
+            int(packed),
+            int(normalized),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"key_planes kernel launch failed: CUDA error {err}")
+    LAUNCHES["key_planes"] += 1
+    return hi, lo, tallies[0], tallies[1]
+
+
+def _check_packed(
+    codes: torch.Tensor, vbits: Optional[torch.Tensor], lengths: torch.Tensor
+) -> None:
+    _check_plane("codes", codes, torch.uint8, 2)
+    _check_plane("lengths", lengths, torch.int32, 1)
+    b, lq = codes.shape
+    if lengths.shape[0] != b:
+        raise ValueError("lengths must have one entry per row of codes")
+    if vbits is not None:
+        _check_plane("vbits", vbits, torch.uint8, 2)
+        if vbits.shape[0] != b or vbits.shape[1] * 8 != lq * 4:
+            raise ValueError(
+                f"vbits {tuple(vbits.shape)} does not match codes {(b, lq)}"
+            )
+
+
+def _check_ascii(seqs: torch.Tensor, lengths: torch.Tensor) -> None:
+    _check_plane("seqs", seqs, torch.uint8, 2)
+    _check_plane("lengths", lengths, torch.int32, 1)
+    if lengths.shape[0] != seqs.shape[0]:
+        raise ValueError("lengths must have one entry per row of seqs")
+
+
+def canonical_key_planes(
+    seqs: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    normalized: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Canonical k-mer key planes of an ASCII read plane: the exact path's
+    extractor.
+
+    ``seqs`` uint8 ``[B, L]``, ``lengths`` int32 ``[B]``.  Returns
+    ``(hi, lo, total, fwd)``: int32 ``[B, L]`` planes of the canonical
+    window starting at lane p (uint32 bit patterns, ``hi = canonical >>
+    32``; -1 in both where the window is invalid), and the int64 tallies
+    of :func:`canonical_hash_keys`.  Equals JAX's ``canonical_key_planes``
+    bit for bit.
+    """
+    _check_k(k, 0)
+    _check_ascii(seqs, lengths)
+    if not _on_cuda(seqs, lengths):
+        return canonical_key_planes_plain(seqs, lengths, k, normalized)
+    return _launch_key_planes(
+        seqs, None, lengths, seqs.shape[1], k, False, normalized
+    )
+
+
+def canonical_key_planes_packed(
+    codes: torch.Tensor,
+    vbits: Optional[torch.Tensor],
+    lengths: torch.Tensor,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`canonical_key_planes` over the packed transport (``codes``
+    uint8 ``[B, L/4]``, ``vbits`` uint8 ``[B, L/8]`` or None)."""
+    _check_k(k, 0)
+    _check_packed(codes, vbits, lengths)
+    if not _on_cuda(codes, vbits, lengths):
+        return canonical_key_planes_packed_plain(codes, vbits, lengths, k)
+    return _launch_key_planes(
+        codes, vbits, lengths, codes.shape[1] * 4, k, True, True
+    )
+
+
 def canonical_hash_keys(
     seqs: torch.Tensor,
     lengths: torch.Tensor,
@@ -219,10 +387,7 @@ def canonical_hash_keys(
     ``canonical_hash_keys`` for every L (no VMEM limit, no row blocking).
     """
     _check_k(k, table_bits)
-    _check_plane("seqs", seqs, torch.uint8, 2)
-    _check_plane("lengths", lengths, torch.int32, 1)
-    if lengths.shape[0] != seqs.shape[0]:
-        raise ValueError("lengths must have one entry per row of seqs")
+    _check_ascii(seqs, lengths)
     if not _on_cuda(seqs, lengths):
         return canonical_hash_keys_plain(seqs, lengths, k, table_bits, normalized)
     return _launch_hash_keys(
@@ -242,23 +407,13 @@ def canonical_hash_keys_packed(
     base valid).  The normalization was applied when the batch was
     packed."""
     _check_k(k, table_bits)
-    _check_plane("codes", codes, torch.uint8, 2)
-    _check_plane("lengths", lengths, torch.int32, 1)
-    b, lq = codes.shape
-    if lengths.shape[0] != b:
-        raise ValueError("lengths must have one entry per row of codes")
-    if vbits is not None:
-        _check_plane("vbits", vbits, torch.uint8, 2)
-        if vbits.shape[0] != b or vbits.shape[1] * 8 != lq * 4:
-            raise ValueError(
-                f"vbits {tuple(vbits.shape)} does not match codes {(b, lq)}"
-            )
+    _check_packed(codes, vbits, lengths)
     if not _on_cuda(codes, vbits, lengths):
         return canonical_hash_keys_packed_plain(
             codes, vbits, lengths, k, table_bits
         )
     return _launch_hash_keys(
-        codes, vbits, lengths, lq * 4, k, table_bits, True, True
+        codes, vbits, lengths, codes.shape[1] * 4, k, table_bits, True, True
     )
 
 
@@ -328,3 +483,125 @@ def mxu_histogram16(
         raise RuntimeError(f"histogram16 kernel launch failed: CUDA error {err}")
     LAUNCHES["histogram16"] += 1
     return counts
+
+
+# ---------------------------------------------------------------------------
+# per-chunk slot compaction
+# ---------------------------------------------------------------------------
+
+_GROUP = 8  # chunks per padding unit, as the Pallas grid steps
+
+
+def _compact_inputs(hi, lo, counts, chunk: int, slots: int):
+    if chunk <= 0 or chunk % 32 or slots <= 0:
+        raise ValueError(
+            f"chunk must be a positive multiple of 32 and slots positive, "
+            f"got chunk={chunk} slots={slots}"
+        )
+    for name, t in (("hi", hi), ("lo", lo), ("counts", counts)):
+        if t is not None and t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if counts.numel() != lo.numel() or (hi is not None and hi.numel() != lo.numel()):
+        raise ValueError("hi, lo and counts must hold the same number of lanes")
+    rows = -(-lo.numel() // (_GROUP * chunk)) * _GROUP
+    hi, lo, counts = (
+        None if t is None else t.reshape(-1) for t in (hi, lo, counts)
+    )
+    return hi, lo, counts, rows
+
+
+def compact_slots_plain(
+    hi: Optional[torch.Tensor],
+    lo: torch.Tensor,
+    counts: torch.Tensor,
+    chunk: int = 1024,
+    slots: int = 128,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`mxu_compact_slots`."""
+    hi, lo, counts, rows = _compact_inputs(hi, lo, counts, chunk, slots)
+    n = lo.numel()
+    dev = lo.device
+    c = torch.zeros(rows * chunk, dtype=torch.int32, device=dev)
+    c[:n] = counts
+    flag = (c > 0).view(rows, chunk)
+    rank = flag.to(torch.int64).cumsum(1) - 1
+    ok = flag.sum(1).max() <= slots if rows else torch.tensor(True, device=dev)
+    take = flag & (rank < slots)
+    row = torch.arange(rows, device=dev)[:, None].expand(rows, chunk)
+    dest = (row * slots + rank)[take]
+    src = take.reshape(-1)[:n]
+
+    def place(values: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(rows * slots, dtype=torch.int32, device=dev)
+        out[dest] = values[src]
+        return out
+
+    return (
+        None if hi is None else place(hi), place(lo), place(counts), ok,
+    )
+
+
+def _compact_lib() -> ctypes.CDLL:
+    lib = _build.load("compact_slots")
+    fn = lib.nt_compact_slots
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, p, p, p, p, p]
+        fn.restype = i
+    return lib
+
+
+def mxu_compact_slots(
+    hi: Optional[torch.Tensor],
+    lo: torch.Tensor,
+    counts: torch.Tensor,
+    chunk: int = 1024,
+    slots: int = 128,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Move each chunk's flagged (``counts > 0``) entries to its first slots.
+
+    ``hi`` (or None: narrow k <= 15 keys), ``lo`` and ``counts`` are int32
+    streams of one length N, as ``count.unique_counts`` returns them.  The
+    stream is cut into ``chunk``-lane chunks, padded with zeros to a
+    multiple of 8 chunks.  Returns ``(hi_c, lo_c, counts_c, ok)`` of length
+    ``ceil(N / (8 * chunk)) * 8 * slots``: each chunk's flagged entries, in
+    input order, in its first slots, the rest 0; ``ok`` (a bool scalar on
+    the input's device) is False iff some chunk had more than ``slots``
+    flags, and then each slot j still holds the chunk's j-th flagged
+    entry.  The name is the JAX function's; on the GPU the compaction is a
+    ballot-and-prefix-count scatter.
+    """
+    hi, lo, counts, rows = _compact_inputs(hi, lo, counts, chunk, slots)
+    if not _on_cuda(hi, lo, counts):
+        return compact_slots_plain(hi, lo, counts, chunk, slots)
+    _check_contiguous(hi=hi, lo=lo, counts=counts)
+    dev = lo.device
+    out = [
+        torch.empty(rows * slots, dtype=torch.int32, device=dev)
+        for _ in range(2 if hi is None else 3)
+    ]
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    if rows:
+        fn = _compact_lib().nt_compact_slots
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(
+                None if hi is None else hi.data_ptr(),
+                lo.data_ptr(),
+                counts.data_ptr(),
+                lo.numel(),
+                chunk,
+                slots,
+                None if hi is None else out[-3].data_ptr(),
+                out[-2].data_ptr(),
+                out[-1].data_ptr(),
+                overflow.data_ptr(),
+                stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"compact_slots kernel launch failed: CUDA error {err}"
+            )
+        LAUNCHES["compact_slots"] += 1
+    hi_c = None if hi is None else out[0]
+    return hi_c, out[-2], out[-1], overflow[0] == 0

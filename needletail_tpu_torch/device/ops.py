@@ -93,7 +93,7 @@ def _compose_le(bytes2d: torch.Tensor) -> torch.Tensor:
 def unwire(wire: torch.Tensor, layout) -> tuple:
     """Split a one-buffer batch transport (``PackedReadBatch.wire_frame``)
     into ``(codes, lengths_i32, vbits, vrow_idx, vrows)``; see
-    :class:`needletail_tpu.batch.WireLayout` for the sections.  Codes and
+    :class:`needletail_tpu_torch.batch.WireLayout` for the sections.  Codes and
     validity planes are views of ``wire``."""
     b, l4, l8, len_size, vcap, vmode = (
         layout.num_reads, layout.l4, layout.l8,

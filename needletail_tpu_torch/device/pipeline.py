@@ -1,27 +1,46 @@
 """File-level drivers of the port.
 
-Counterpart of ``needletail_tpu/device/pipeline.py``.  This slice ports the
-hash-count path: FASTX file -> host framer -> one-buffer wire -> device
-``unwire`` -> canonical k-mer hash keys -> 2^16-bin histogram -> int64
-table.  The device steps are plain functions on tensors; PyTorch runs them
+Counterpart of ``needletail_tpu/device/pipeline.py``.  Two paths so far:
+
+  * the hash count, :func:`hash_count_file`: FASTX file -> host framer ->
+    one-buffer wire -> device ``unwire`` -> canonical k-mer hash keys ->
+    2^16-bin histogram -> int64 table;
+  * the exact spectrum, :func:`count_file`: the same front, then either a
+    dense ``4^k`` table (k <= 9, histogram kernel) or canonical key planes
+    buffered on the device, sorted and run-length counted per flush and
+    compacted by the slot-compaction cascade (k >= 10; densified at the
+    end for k <= 12).
+
+The device steps are plain functions on tensors; PyTorch runs them
 eagerly, so there is no per-configuration compile to cache.
 """
 
 from __future__ import annotations
 
 import time as _time
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from needletail_tpu.batch import length_wire_dtype
-from needletail_tpu.utils.profiling import metered_iter
+from ..batch import length_wire_dtype
+from ..utils.profiling import metered_iter
 
+from ..encoding import ENCODE_RAW_LUT
+from . import count as _count
 from . import kernels as _kernels
-from .ops import _compose_le, resolve_vbits, unwire
+from . import kmers as _kmers
+from .ops import _compose_le, resolve_vbits, unpack_codes, unwire
 
-__all__ = ["hash_count_file"]
+__all__ = [
+    "hash_count_file",
+    "count_file",
+    "canonical_dense_count",
+    "canonical_match_count",
+    "base_count",
+    "pack_target",
+    "readme_pipeline",
+]
 
 
 def _resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -34,6 +53,99 @@ def _resolve_device(device: Union[str, torch.device]) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _uploader(dev: torch.device):
+    """numpy array -> tensor on ``dev``; CUDA copies go through pinned
+    staging, so each is an async DMA on the current stream."""
+
+    def to_device(arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        return t
+
+    return to_device
+
+
+def _batch_source(
+    path, batch_size, max_len, host_workers, spill_dir, packed, normalized,
+    ckpt_mode, start_offset, checkpoint_every,
+):
+    """A driver's framed batches: one offset-reporting stream from
+    ``start_offset`` in checkpoint mode, else the multi-worker front.
+    Neither driver reads qualities."""
+    if ckpt_mode:
+        from ..checkpoint import checkpoint_source
+
+        return checkpoint_source(
+            path, batch_size, max_len, False, packed, normalized,
+            start_offset, require_offsets=checkpoint_every is not None,
+        )
+    from ..io.framing import _make_batch_source
+
+    batches, _ = _make_batch_source(
+        path, batch_size, max_len, host_workers, with_quals=False,
+        spill_dir=spill_dir, packed=packed, normalized=normalized,
+    )
+    return batches
+
+
+def _placed_stream(
+    batches, place, dev, packed, meter, double_buffer, checkpoint_every,
+    save_checkpoint,
+):
+    """A driver's stream of ``place(batch)`` results, ``(num_bases,
+    payload, aux, file_offset)`` with payload None where no window fits.
+
+    ``double_buffer`` frames and places in feeder threads of their own;
+    ``save_checkpoint(offset)`` fires after the driver folded every
+    ``checkpoint_every``-th item (the feeders prefetch ahead of it);
+    ``meter`` records ``frame``, ``h2d`` (synchronized, so its bytes/s is
+    the transfer's own) and ``wait``.
+    """
+    from ..checkpoint import checkpointed_batches
+
+    def transport_nbytes(batch) -> int:
+        if packed:
+            return batch.wire_nbytes()
+        return batch.seqs.nbytes + batch.lengths.nbytes
+
+    if meter is not None:
+        batches = metered_iter(
+            meter, "frame", batches,
+            nbytes_of=transport_nbytes, items_of=lambda b: b.num_bases,
+        )
+        on_cuda = dev.type == "cuda"
+        unmetered = place
+
+        def place(batch):
+            if on_cuda:
+                # start the clock on an idle stream: the transfer queues
+                # behind the steps already enqueued
+                torch.cuda.current_stream(dev).synchronize()
+            t0 = _time.perf_counter()
+            out = unmetered(batch)
+            if on_cuda and out[1] is not None:
+                torch.cuda.current_stream(dev).synchronize()
+            meter.add(
+                "h2d", _time.perf_counter() - t0,
+                nbytes=transport_nbytes(batch), items=out[0],
+            )
+            return out
+
+    if double_buffer:
+        from ..io.feed import device_feed
+
+        placed = device_feed(device_feed(batches, lambda b: b), place)
+    else:
+        placed = (place(b) for b in batches)
+    placed = checkpointed_batches(
+        placed, checkpoint_every, save_checkpoint, offset_of=lambda t: t[3]
+    )
+    if meter is not None:
+        placed = metered_iter(meter, "wait", placed)
+    return placed
 
 
 def _hash_step_fn(k: int, table_bits: int, packed: bool, normalized: bool):
@@ -125,16 +237,12 @@ def hash_count_file(
     if table_bits > 16:
         raise ValueError("the histogram shard is 2^16 bins; table_bits <= 16")
     dev = _resolve_device(device)
-    on_cuda = dev.type == "cuda"
 
     from ..checkpoint import (
-        checkpoint_source,
-        checkpointed_batches,
         counting_meta,
         prepare_checkpoint_stream,
         save_stream_checkpoint,
     )
-    from ..io.framing import _make_batch_source
 
     def _check_table_bits(ck):
         if int(ck["meta"]["table_bits"]) != table_bits:
@@ -169,38 +277,12 @@ def hash_count_file(
                 dtype=torch.int64,
             )
         )
-    if ckpt_mode:
-        batches = checkpoint_source(
-            path, batch_size, max_len, False, packed, normalized,
-            start_offset, require_offsets=checkpoint_every is not None,
-        )
-    else:
-        batches, _ = _make_batch_source(
-            path, batch_size, max_len, host_workers,
-            # the hash path never reads qualities
-            with_quals=False, spill_dir=spill_dir,
-            packed=packed, normalized=normalized,
-        )
-
-    def _transport_nbytes(batch) -> int:
-        if packed:
-            return batch.wire_nbytes()
-        return batch.seqs.nbytes + batch.lengths.nbytes
-
     t_wall0 = _time.perf_counter()
-    if meter is not None:
-        batches = metered_iter(
-            meter, "frame", batches,
-            nbytes_of=_transport_nbytes, items_of=lambda b: b.num_bases,
-        )
-
-    def _to_device(arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if on_cuda:
-            # pinned staging, so the copy is a true async DMA on the
-            # current stream
-            t = t.pin_memory().to(dev, non_blocking=True)
-        return t
+    batches = _batch_source(
+        path, batch_size, max_len, host_workers, spill_dir, packed,
+        normalized, ckpt_mode, start_offset, checkpoint_every,
+    )
+    _to_device = _uploader(dev)
 
     def _place(batch):
         """``(num_bases, payload, aux, file_offset)``: the wire and its
@@ -224,26 +306,6 @@ def hash_count_file(
             batch.file_offset,
         )
 
-    if meter is not None:
-        _place_inner = _place
-
-        def _place(batch):  # noqa: F811 — metered twin
-            if on_cuda:
-                # start the clock on an idle stream: the transfer queues
-                # behind the steps already enqueued
-                torch.cuda.current_stream(dev).synchronize()
-            t0 = _time.perf_counter()
-            out = _place_inner(batch)
-            if on_cuda and out[1] is not None:
-                torch.cuda.current_stream(dev).synchronize()
-            meter.add(
-                "h2d",
-                _time.perf_counter() - t0,
-                nbytes=_transport_nbytes(batch),
-                items=out[0],
-            )
-            return out
-
     def _save_checkpoint(offset):
         total, fwd, t = _hash_finalize(table, tallies)
         save_stream_checkpoint(
@@ -262,20 +324,10 @@ def hash_count_file(
             },
         )
 
-    if double_buffer:
-        from needletail_tpu.io.feed import device_feed
-
-        # framing and placement each in a feeder thread of their own
-        placed = device_feed(device_feed(batches, lambda b: b), _place)
-    else:
-        placed = (_place(b) for b in batches)
-    # wrap the placed stream, so a save fires only after the driver folded
-    # each N-th batch (the feeders prefetch ahead of it)
-    placed = checkpointed_batches(
-        placed, checkpoint_every, _save_checkpoint, offset_of=lambda t: t[3]
+    placed = _placed_stream(
+        batches, _place, dev, packed, meter, double_buffer, checkpoint_every,
+        _save_checkpoint,
     )
-    if meter is not None:
-        placed = metered_iter(meter, "wait", placed)
     for nb, payload, aux, _offset in placed:
         n_bases += nb
         if payload is not None:
@@ -290,3 +342,308 @@ def hash_count_file(
         meter.add("drain", now - t_drain, nbytes=out.nbytes)
         meter.add("wall", now - t_wall0, items=n_bases)
     return n_bases, total, fwd, out
+
+
+# ---------------------------------------------------------------------------
+# the exact spectrum
+# ---------------------------------------------------------------------------
+
+
+def pack_target(kmer_bytes: bytes) -> Tuple[np.uint32, np.uint32]:
+    """Pack an ASCII k-mer into the (hi, lo) uint32 pair of the device
+    windows (bytes outside ACGT/acgt are skipped, as JAX skips them)."""
+    k = len(kmer_bytes)
+    value = 0
+    for b in bytes(kmer_bytes):
+        code = int(ENCODE_RAW_LUT[b])
+        if code != 255:
+            value = ((value << 2) | code) & ((1 << (2 * k)) - 1)
+    return np.uint32(value >> 32), np.uint32(value & 0xFFFFFFFF)
+
+
+def _windows_fn(canonical: bool):
+    return _kmers.canonical_kmers if canonical else _kmers.pack_kmers
+
+
+def canonical_dense_count(
+    seqs: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    canonical: bool = True,
+    normalized: bool = True,
+) -> torch.Tensor:
+    """int32 ``[4^k]`` exact spectrum of (canonical) k-mers for one batch."""
+    windows = _windows_fn(canonical)(seqs, lengths, k, normalized=normalized)
+    return _count.dense_spectrum(windows, k)
+
+
+def canonical_match_count(
+    seqs: torch.Tensor,
+    lengths: torch.Tensor,
+    target_hi,
+    target_lo,
+    k: int,
+    canonical: bool = True,
+    normalized: bool = True,
+) -> torch.Tensor:
+    """Count of windows whose (canonical) value equals the target."""
+    windows = _windows_fn(canonical)(seqs, lengths, k, normalized=normalized)
+    return _count.match_count(windows, target_hi, target_lo)
+
+
+def base_count(lengths: torch.Tensor) -> torch.Tensor:
+    """Total bases of a batch, as an int64 scalar."""
+    return lengths.to(torch.int64).sum()
+
+
+def _count_step_fns(k: int, packed: bool, canonical: bool, normalized: bool,
+                    on_cuda: bool):
+    """``(spectrum, keys)`` steps of :func:`count_file` over one placed
+    batch ``(data, lengths, vbits)``: the int32 dense spectrum, or the
+    flat masked (hi | None, lo) key planes (hi dropped for k <= 15, whose
+    keys fit lo).  Keys come from the key-plane kernel for canonical
+    counts on the card, from :mod:`kmers` otherwise, as JAX routes them."""
+    narrow = k <= 15
+    make_windows = _windows_fn(canonical)
+
+    def windows(data, lengths, vbits):
+        seqs = unpack_codes(data, vbits) if packed else data
+        return make_windows(
+            seqs, lengths, k, normalized=normalized, precoded=packed
+        )
+
+    def spectrum(data, lengths, vbits):
+        return _count.dense_spectrum(windows(data, lengths, vbits), k)
+
+    def keys(data, lengths, vbits):
+        if canonical and on_cuda:
+            if packed:
+                khi, klo, _, _ = _kernels.canonical_key_planes_packed(
+                    data, vbits, lengths, k
+                )
+            else:
+                khi, klo, _, _ = _kernels.canonical_key_planes(
+                    data, lengths, k, normalized
+                )
+            # windows start only at lanes [0, L-k+1); later lanes are
+            # sentinel anyway, and dropping them shrinks the sort
+            w = khi.shape[1] - k + 1
+            hi = None if narrow else khi[:, :w].reshape(-1)
+            return hi, klo[:, :w].reshape(-1)
+        hi, lo = _count.mask_keys(windows(data, lengths, vbits))
+        return (None if narrow else hi), lo
+
+    return spectrum, keys
+
+
+def count_file(
+    path,
+    k: int,
+    canonical: bool = True,
+    normalized: bool = True,
+    batch_size: int = 512,
+    max_len: Optional[int] = None,
+    dense: Optional[bool] = None,
+    sparse_format: str = "dict",
+    bucketed: bool = False,
+    quality_cutoff: Optional[int] = None,
+    phred_offset: int = 33,
+    host_workers: Optional[int] = None,
+    spill_dir: Optional[str] = None,
+    packed: Optional[bool] = None,
+    checkpoint_every: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    resume_from: Optional[str] = None,
+    meter=None,
+    double_buffer: bool = True,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[int, Union[np.ndarray, Dict[int, int], Tuple[np.ndarray, np.ndarray]]]:
+    """Exact k-mer spectrum of a FASTX file (or a list of files).
+
+    Returns ``(n_bases, spectrum)``, the values JAX's ``count_file``
+    returns: a dense int64 ``[4^k]`` array for k <= 12 (or ``dense=True``),
+    else a ``{packed_kmer: count}`` dict, or with ``sparse_format="arrays"``
+    ``(keys uint64, counts int64)`` arrays, keys ascending.  k <= 9
+    accumulates a dense table per batch; 10 <= k <= 12 counts sparse and
+    densifies at the end; above that the key planes stay on the device
+    until a flush of ``count.SPARSE_FLUSH_LANES`` lanes (or EOF) resolves
+    them with one sort.
+
+    ``device="cuda"`` runs the hand-written kernels and raises when CUDA
+    is absent; ``device="cpu"`` runs their plain versions.  ``packed``
+    (default on) ships the 2-bit one-buffer wire, else ASCII; results are
+    identical.  ``host_workers``, ``spill_dir``, ``double_buffer``,
+    ``meter`` and the checkpoint flags act as in :func:`hash_count_file`;
+    checkpoints are of kind ``count_dense`` (k <= 9) or ``count_sparse``,
+    the same files JAX's ``count_file`` writes and resumes.
+
+    ``bucketed``, ``quality_cutoff`` and a tuple ``k`` are not ported yet
+    and raise ``NotImplementedError``.
+    """
+    if isinstance(k, (tuple, list, set, frozenset)):
+        raise NotImplementedError(
+            "multi-k counting comes with the 'Multi-k' item of ROADMAP.md; "
+            "call count_file once per k"
+        )
+    if bucketed:
+        raise NotImplementedError(
+            "bucketed batching comes with the 'Bucketed batching' item of "
+            "ROADMAP.md"
+        )
+    if quality_cutoff is not None:
+        raise NotImplementedError(
+            "quality masking comes with the 'Quality' item of ROADMAP.md"
+        )
+    if dense is None:
+        dense = k <= _count.MAX_DENSE_K
+    elif dense and k > _count.MAX_DENSE_K:
+        raise ValueError(
+            f"dense output needs k <= {_count.MAX_DENSE_K}, got {k}; "
+            "use dense=False (sparse keys/counts) for larger k"
+        )
+    if packed is None:
+        packed = True
+    dev = _resolve_device(device)
+    on_cuda = dev.type == "cuda"
+
+    from ..checkpoint import (
+        counting_meta,
+        prepare_checkpoint_stream,
+        save_stream_checkpoint,
+    )
+
+    densify_after = dense and k > _count.MXU_DENSE_K
+    accumulate_dense = dense and not densify_after
+    spectrum_step, keys_step = _count_step_fns(
+        k, packed, canonical, normalized, on_cuda
+    )
+    sem = counting_meta(
+        canonical=canonical, normalized=normalized,
+        quality_cutoff=quality_cutoff, phred_offset=phred_offset,
+    )
+    kind = "count_dense" if accumulate_dense else "count_sparse"
+    ckpt_mode, ck = prepare_checkpoint_stream(
+        kind, k,
+        checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path,
+        resume_from=resume_from, host_workers=host_workers,
+        canonical=canonical, normalized=normalized,
+        quality_cutoff=quality_cutoff, phred_offset=phred_offset,
+    )
+
+    n_bases = 0
+    table = (
+        torch.zeros(4**k, dtype=torch.int64, device=dev)
+        if accumulate_dense else None
+    )
+    sparse = _count.SparseSpectrumAccumulator()
+    start_offset = 0
+    if ck is not None:
+        start_offset = ck["file_offset"]
+        n_bases = ck["n_bases"]
+        if accumulate_dense:
+            table.copy_(torch.from_numpy(
+                np.asarray(ck["arrays"]["table"], dtype=np.int64)
+            ))
+        else:
+            sparse.restore(ck["arrays"]["keys"], ck["arrays"]["counts"])
+
+    def _save_checkpoint(offset):
+        if accumulate_dense:
+            arrays = {"table": table.cpu().numpy()}
+        else:
+            # finish() flushes (one sort) and leaves the accumulator live
+            keys, counts = sparse.finish()
+            arrays = {"keys": keys, "counts": counts}
+        save_stream_checkpoint(
+            checkpoint_path, kind, k, offset, n_bases, arrays,
+            input_path=str(path), meta=sem,
+        )
+
+    t_wall0 = _time.perf_counter()
+    batches = _batch_source(
+        path, batch_size, max_len, host_workers, spill_dir, packed,
+        normalized, ckpt_mode, start_offset, checkpoint_every,
+    )
+    to_device = _uploader(dev)
+
+    def _place(batch):
+        """``(num_bases, payload, layout, file_offset)``: the wire and its
+        layout, or ASCII ``(seqs, lengths)`` and None."""
+        if batch.max_len < k:
+            # no window fits; bases still count
+            return batch.num_bases, None, None, batch.file_offset
+        if packed:
+            # no read padding: the short last batch ships as it is
+            buf, layout = batch.wire_frame(batch.num_reads)
+            return batch.num_bases, to_device(buf), layout, batch.file_offset
+        payload = (
+            to_device(batch.seqs),
+            to_device(batch.lengths.astype(np.int32, copy=False)),
+        )
+        return batch.num_bases, payload, None, batch.file_offset
+
+    placed = _placed_stream(
+        batches, _place, dev, packed, meter, double_buffer, checkpoint_every,
+        _save_checkpoint,
+    )
+    for nb, payload, layout, _offset in placed:
+        n_bases += nb
+        if payload is None:
+            continue
+        t0 = _time.perf_counter() if meter is not None else 0.0
+        if packed:
+            codes, lengths, vbits, vrow_idx, vrows = unwire(payload, layout)
+            vbits = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
+            args = (codes, lengths, vbits)
+        else:
+            args = (payload[0], payload[1], None)
+        if accumulate_dense:
+            table += spectrum_step(*args)
+        else:
+            sparse.add(*keys_step(*args))
+        if meter is not None:
+            meter.add("dispatch", _time.perf_counter() - t0, items=nb)
+
+    t_drain = _time.perf_counter()
+    if accumulate_dense:
+        result = table.cpu().numpy()
+    else:
+        keys, counts = sparse.finish()
+        if densify_after:
+            result = np.zeros(4**k, np.int64)
+            result[keys.astype(np.int64)] = counts
+        elif sparse_format == "arrays":
+            result = (keys, counts)
+        else:
+            result = _count.spectrum_arrays_to_dict(keys, counts)
+    if meter is not None:
+        now = _time.perf_counter()
+        meter.add("drain", now - t_drain)
+        meter.add("wall", now - t_wall0, items=n_bases)
+    return n_bases, result
+
+
+def readme_pipeline(
+    path,
+    k: int = 4,
+    target: bytes = b"AAAA",
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[int, int]:
+    """The reference README example (ref src/lib.rs:6-40) on the device:
+    total bases and the number of canonical ``target`` k-mers."""
+    from ..io.fast_batch import fast_read_batches
+
+    if len(target) != k:
+        raise ValueError(f"target {target!r} is not a {k}-mer")
+    dev = _resolve_device(device)
+    hi, lo = pack_target(target)
+    n_bases = 0
+    n_matches = 0
+    for batch in fast_read_batches(path, batch_size=512):
+        n_bases += batch.num_bases
+        if batch.max_len < k:
+            continue
+        seqs = torch.from_numpy(np.ascontiguousarray(batch.seqs)).to(dev)
+        lengths = torch.from_numpy(batch.lengths.astype(np.int32)).to(dev)
+        n_matches += int(canonical_match_count(seqs, lengths, hi, lo, k))
+    return n_bases, n_matches

@@ -1,12 +1,11 @@
-"""The framing front of the port's file drivers, free of JAX.
+"""The framing front of the port's file drivers.
 
-Ports three pieces of the JAX package whose modules import JAX:
-``_make_batch_source`` (``device/pipeline.py``), ``split_fastx_ranges``
-with its record-start sync (``parallel/distributed.py``), and
-``parallel_read_batches`` (``io/parallel_host.py``, which reaches
-``parallel.distributed`` and so JAX).  The workers themselves
-(``parallel_host._worker``), the error rebasing, the shared-memory pool and
-the framers are reused from ``needletail_tpu`` as they are.
+Ports ``_make_batch_source`` (``device/pipeline.py``), ``split_fastx_ranges``
+with its record-start sync (``parallel/distributed.py``) and
+``parallel_read_batches`` with its spawn worker, error rebasing and pool
+size (``io/parallel_host.py``) from the JAX package.  The workers frame
+through the port's own ``io.fast_batch`` and native framer, so a spawned
+child imports nothing but this package.
 
 Batches from several workers interleave; every record is framed by exactly
 one worker, so the counting drivers (integer adds) get identical results.
@@ -20,18 +19,14 @@ import queue as _queue
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple, Union
 
-from needletail_tpu.batch import PackedReadBatch, ReadBatch
-from needletail_tpu.errors import ParseError
-from needletail_tpu.io.fast_batch import (
+from ..batch import PackedReadBatch, ReadBatch
+from ..errors import ErrorPosition, ParseError
+from ..parser.utils import trim_cr
+from .compression import sniff_compression
+from .fast_batch import (
     _effective_packed_max_len,
     fast_read_batches,
-)
-from needletail_tpu.io.parallel_host import (
-    _DONE,
-    _ERR,
-    _rebase_error,
-    _worker,
-    auto_host_workers,
+    fast_read_batches_range,
 )
 
 __all__ = [
@@ -39,6 +34,102 @@ __all__ = [
     "parallel_read_batches",
     "auto_host_workers",
 ]
+
+_DONE = "done"
+_ERR = "err"
+_BATCH = "batch"
+
+
+def auto_host_workers() -> int:
+    """Default framing parallelism: all cores but one (the consumer thread
+    drives the device), capped at 16.  Always >= 1."""
+    return max(1, min((os.cpu_count() or 1) - 1, 16))
+
+
+def _worker(
+    path, start, end, batch_size, max_len, with_quals, with_ids, q,
+    shm_names=None, free_q=None, packed=False, normalized=True,
+) -> None:
+    """Spawn-pool body: frame ``[start, end)`` of ``path`` and ship each
+    batch (through a shared-memory segment when ``shm_names`` is given),
+    then a done sentinel, or the error with the range start."""
+    import pickle
+
+    writer = None
+    try:
+        if shm_names is not None:
+            from .shm_pool import SharedBatchWriter
+
+            writer = SharedBatchWriter(
+                shm_names, batch_size, max_len, with_quals, packed=packed
+            )
+        for b in fast_read_batches_range(
+            path, start, end, batch_size=batch_size, max_len=max_len,
+            with_quals=with_quals, with_ids=with_ids,
+            packed=packed, normalized=normalized,
+        ):
+            # the descriptor's bool marks quals (ASCII) / vbits (packed)
+            second = b.dense_vbits() if packed else b.quals
+            if writer is not None:
+                seg = free_q.get()
+                n = writer.write(seg, b)
+                q.put((_BATCH, (seg, n, b.ids if with_ids else [],
+                                second is not None)))
+            elif packed:
+                q.put((_BATCH, (b.codes, b.lengths, second, b.ids)))
+            else:
+                q.put((_BATCH, (b.seqs, b.lengths, second, b.ids)))
+        q.put((_DONE, None))
+    except BaseException as exc:  # propagate to the consumer
+        # mp.Queue pickles in a feeder thread, where an unpicklable
+        # exception would vanish: check here and degrade
+        try:
+            pickle.dumps(exc)
+        except Exception:
+            exc = ParseError.from_io(OSError(repr(exc)))
+        q.put((_ERR, (exc, start)))
+    finally:
+        if writer is not None:
+            writer.close()
+
+
+def _count_newlines_before(path, stop: int) -> int:
+    """Newlines in ``file[0:stop]`` (error path only)."""
+    remaining = stop
+    count = 0
+    with open(path, "rb") as f:
+        while remaining > 0:
+            chunk = f.read(min(remaining, 8 << 20))
+            if not chunk:
+                break
+            count += chunk.count(b"\n")
+            remaining -= len(chunk)
+    return count
+
+
+def _rebase_error(path, exc, range_start: int):
+    """Rewrite a worker ParseError's line number to be file-global."""
+    if (
+        not isinstance(exc, ParseError)
+        or range_start <= 0
+        or exc.position is None
+        or exc.position.line is None
+    ):
+        return exc
+    try:
+        lines_before = _count_newlines_before(path, range_start)
+    except OSError:
+        # the input vanished mid-error: keep the worker's own error
+        return exc
+    return ParseError(
+        exc.msg,
+        exc.kind,
+        ErrorPosition(
+            line=exc.position.line + lines_before, id=exc.position.id
+        ),
+        exc.format,
+    )
+
 
 _SYNC_WINDOW = 1 << 20
 _SYNC_DEPTH = 2
@@ -60,8 +151,6 @@ def _is_fastq_record_start(
     equal sequence and quality lengths, since a quality line starting with
     ``@`` can mimic a record start.
     """
-    from needletail_tpu.parser.utils import trim_cr
-
     if buf[pos : pos + 1] != b"@":
         return False
     if pos > 0 and buf[pos - 1 : pos] != b"\n":
@@ -180,8 +269,6 @@ def parallel_read_batches(
         )
         return
 
-    from needletail_tpu.io.compression import sniff_compression
-
     try:
         with open(path, "rb") as f:
             magic = f.read(2)
@@ -198,7 +285,7 @@ def parallel_read_batches(
     q = ctx.Queue(maxsize=4 * workers)
     pool = free_q = shm_names = None
     if max_len is not None:
-        from needletail_tpu.io.shm_pool import SharedBatchPool
+        from .shm_pool import SharedBatchPool
 
         pool = SharedBatchPool(
             batch_size, max_len, with_quals, segments=2 * workers + 2,
@@ -312,8 +399,6 @@ def _make_batch_source(
     ``spill_dir``.  A list of paths chains every file through one source.
     An explicit ``max_len`` rounds up to a multiple of 8.
     """
-    from needletail_tpu.io.compression import sniff_compression
-
     if isinstance(path, (list, tuple)):
         if len(path) == 1:
             path = path[0]
@@ -357,7 +442,7 @@ def _make_batch_source(
         ), host_workers
 
     def gen():
-        from needletail_tpu.io.spill import SpillSpaceError, spilled_input
+        from .spill import SpillSpaceError, spilled_input
 
         spill = spilled_input(path, dir=spill_dir, threads=host_workers)
         try:

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from needletail_tpu.batch import PackedReadBatch
-from needletail_tpu.encoding import pack_codes_host_rows
+from ..batch import PackedReadBatch
+from ..encoding import pack_codes_host_rows
 
 __all__ = ["CLEAN", "DIRTY", "random_reads", "packed_batch"]
 

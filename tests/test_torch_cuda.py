@@ -93,3 +93,84 @@ def test_cuda_hash_count_file_reaches_goldens(cuda_device):
     )
     assert got[:3] == want[:3] == GOLD
     np.testing.assert_array_equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("vmode", [None, 0, 1, 2])
+def test_cuda_key_planes_match_plain(cuda_device, vmode):
+    """The planes mode of the window kernel, ASCII (vmode None) and packed
+    in each validity shape, at a width that is no multiple of the block."""
+    rng = np.random.default_rng(50 + (vmode or 0))
+    dirty = {None: 0.5, 0: 0.0, 1: 1.0, 2: 0.05}[vmode]
+    seqs, lengths = random_reads(rng, 256, 152, dirty_frac=dirty)
+    for k in KS:
+        if vmode is None:
+            s = torch.from_numpy(seqs).to(cuda_device)
+            ln = torch.from_numpy(lengths).to(cuda_device)
+            for normalized in (True, False):
+                got = tk.canonical_key_planes(s, ln, k, normalized)
+                want = tk.canonical_key_planes_plain(s, ln, k, normalized)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+            continue
+        buf, layout = packed_batch(seqs, lengths, vmode).wire_frame(256)
+        codes, ln, vbits, vrow_idx, vrows = unwire(
+            torch.from_numpy(buf).to(cuda_device), layout
+        )
+        vb = resolve_vbits(vbits, vrow_idx, vrows, 256)
+        got = tk.canonical_key_planes_packed(codes, vb, ln, k)
+        want = tk.canonical_key_planes_packed_plain(codes, vb, ln, k)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("n", [100, 8192, 100_003])
+def test_cuda_compact_slots_match_plain(cuda_device, wide, n):
+    """Random flags with an overflowing chunk, and the sorted runs of
+    ``unique_counts``, wide and narrow, at ragged lengths."""
+    from needletail_tpu_torch.device import count as tc
+
+    rng = np.random.default_rng(n)
+    planes = rng.integers(-(1 << 31), 1 << 31, (2, n), dtype=np.int64)
+    hi, lo = torch.from_numpy(planes.astype(np.int32)).to(cuda_device)
+    counts = np.where(rng.random(n) < 0.1, rng.integers(1, 9, n), 0)
+    overflow = n >= 300
+    if overflow:
+        counts[:300] = 1  # more flags than slots in the first chunk
+    c = torch.from_numpy(counts.astype(np.int32)).to(cuda_device)
+    keys = torch.from_numpy(rng.integers(0, n // 4 + 1, n).astype(np.int32))
+    runs = tc.unique_counts(
+        keys.to(cuda_device) if wide else None, keys.flip(0).to(cuda_device)
+    )
+    for args in ((hi if wide else None, lo, c), runs):
+        got = tk.mxu_compact_slots(*args)
+        want = tk.compact_slots_plain(*args)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+    ok = bool(tk.mxu_compact_slots(hi if wide else None, lo, c)[3])
+    assert ok is not overflow
+
+
+def test_cuda_count_file_matches_plain(cuda_device, tmp_path):
+    """``count_file`` through both new kernels, over the corpus written 8
+    times: every run is then at least 8 lanes long, so no 1024-lane chunk
+    holds more than 128 run heads and the cascade's first pass holds."""
+    from pathlib import Path
+
+    from needletail_tpu_torch.device import count as tc
+    from needletail_tpu_torch.device.pipeline import count_file
+
+    copies = tmp_path / "x8.fq"
+    copies.write_bytes(Path(FQ).read_bytes() * 8)
+    kw = dict(batch_size=4096, max_len=128, host_workers=1,
+              sparse_format="arrays")
+    tk.reset_launches()
+    tc.reset_flush_routes()
+    got = count_file(str(copies), 21, device="cuda", **kw)
+    assert tk.LAUNCHES["key_planes"] > 0 and tk.LAUNCHES["compact_slots"] > 0
+    assert tc.FLUSH_ROUTES == {r: int(r == "cascade") for r in tc.FLUSH_ROUTES}
+    want = count_file(FQ, 21, device="cpu", **kw)
+    assert got[0] == 8 * want[0] == 8 * GOLD[0]
+    np.testing.assert_array_equal(got[1][0], want[1][0])
+    np.testing.assert_array_equal(got[1][1], 8 * want[1][1])
+    assert int(got[1][1].sum()) == 8 * GOLD[1]
