@@ -10,11 +10,13 @@ Phases, each fatal on failure:
    the CUDA kernels from ``needletail_tpu_torch/csrc`` and print the build
    time;
 2. hold each kernel against its plain PyTorch version on the card, bit for
-   bit (tolerance 0: the path is all integer): hash keys and key planes
-   over k, ASCII and packed input, the three wire validity shapes and
-   several read widths; the histogram on uniform, skewed and
-   mostly-invalid keys; slot compaction over wide and narrow sorted runs,
-   random flags, an overflowing chunk and ragged lengths;
+   bit (tolerance 0: the path is all integer): hash keys, key planes and
+   hash-tally planes over k, ASCII (and for the first two packed) input,
+   the three wire validity shapes and several read widths; the histogram
+   on uniform, skewed and mostly-invalid keys; slot compaction over wide
+   and narrow sorted runs, random flags, an overflowing chunk and ragged
+   lengths; the block sort at spans from 128 to 2^17 lanes on random,
+   top-bit, all-equal, sorted and reversed keys;
 3. the hash path at full size: ``hash_count_file`` over the golden FASTQ
    written 256 times (64M bases) at batch 131072 x 128, through both of
    its kernels (launch counts read around this run), to the x256 goldens
@@ -33,11 +35,26 @@ Phases, each fatal on failure:
    k=11 densified, ``canonical=False``, ``packed=False``, ``28S.fasta`` at
    k=31 to its goldens, an interrupted ``count_sparse`` checkpoint/resume,
    and a mostly-distinct random stream that overflows the cascade;
-7. each kernel's time beside its plain version's, its bound and, where one
-   PyTorch call computes the same function, that call's, at the main
-   paths' shapes, and the times of the flush's sort and of its whole run
+7. the tally path: every ASCII batch of the 16-copy file through the
+   hash-tally kernel and ``mxu_histogram16(idx, weight)`` to 16 x the
+   one-copy table and goldens;
+8. the genome path at full size: ``genome_spectrum`` over the 5 Mbp
+   synthetic genome at k=31 (611 tiles of 8,192 bases, one block) to the
+   JAX bench's goldens and checksums, its bases/s (best of 2 after a
+   warm-up) and device profile; its arrays equal to the plain path's
+   through the host-filter flush, that flush timed alone; k=7 dense and
+   ``packed=False`` at a smaller depth;
+9. multi-k at full width: ``multi_k_count_file`` over the 64M bases at
+   k = 4, 21, 31 to 256 x the plain one-copy spectra, its bases/s, and an
+   interrupted ``multik`` checkpoint and its resume at the 16-copy depth;
+10. the block-sort experiment (``needletail_tpu_torch.bench.exp_block_sort``):
+   checked against the plain sort, then timed beside its plain version and
+   ``torch.sort``; these are the block sort's times in the kernels line;
+11. each other kernel's time beside its plain version's, its bound and,
+   where one PyTorch call computes the same function, that call's, at the
+   main paths' shapes, and the times of the flush's sort and of its whole run
    count (``unique_counts``: the sort, run heads and lengths);
-8. stop every process the run started (the framing pool's resource
+12. stop every process the run started (the framing pool's resource
    tracker) and fail if a child is still alive; then a
    ``{"kernels": [...]}`` line and the last line
    ``{"ok": true, "device": {...}}``.
@@ -49,8 +66,8 @@ stands outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -83,6 +100,20 @@ HIST_KEYS = BATCH * MAX_LEN  # 16.7M keys, one main-path batch
 # compaction cases: (lanes, share of flagged lanes); 8192 lanes is the
 # kernel's padding unit, and none of these is a multiple of it
 COMPACT_CASES = ((100, 0.5), (1_000_003, 0.1), (3_000_001, 0.02))
+# block sort checks: every span of the experiment and the tile edges
+# (2^15 lanes fill one CTA's shared memory; 2^16 and 2^17 also run
+# passes over device memory)
+SORT_CHECK_BLOCKS = (128, 1024, 1 << 14, 1 << 15, 1 << 16, 1 << 17)
+SORT_CHECK_LANES = 1 << 19
+
+# the genome path: bench.py's whole-bacterium k=31 spectrum and goldens
+GENOME_BASES = 5_000_000
+GENOME_K = 31
+GENOME_TILE = 8192
+GENOME_BATCH_TILES = 640  # 611 tiles: one block, 5,242,880 key lanes
+GOLD_GENOME = (4_999_970, 4_999_970, 1_373_307_442, 100_106_330)
+SMALL_GENOME_BASES = 400_000
+MULTI_KS = (4, 21, 31)
 
 # published H100 SXM peaks: HBM bytes/s, and
 # operations/s outside the tensor cores (the float32 rate; every kernel
@@ -93,32 +124,6 @@ CORE_OPS_PER_S = 67e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple:
@@ -139,7 +144,7 @@ class Errors:
     def __init__(self) -> None:
         self.worst = {
             "hash_keys": 0, "histogram16": 0, "key_planes": 0,
-            "compact_slots": 0,
+            "compact_slots": 0, "hash_tally": 0, "block_sort": 0,
         }
 
     def hold(self, name: str, what: str, got, want) -> None:
@@ -165,8 +170,8 @@ class Errors:
 
 
 def check_window_kernels(errors: Errors, rng) -> int:
-    """Hash keys and key planes (one CUDA source, two modes) over the same
-    cases."""
+    """Hash keys, key planes and, over the ASCII cases, hash-tally planes
+    (one CUDA source, three modes) over the same cases."""
     import torch
 
     from needletail_tpu_torch.device import kernels as K_
@@ -176,6 +181,7 @@ def check_window_kernels(errors: Errors, rng) -> int:
     dev = torch.device("cuda")
     hash_parts = ("keys", "total", "fwd")
     plane_parts = ("hi", "lo", "total", "fwd")
+    tally_parts = ("idx", "weight", "total", "fwd")
     cases = 0
     for width, rows in ASCII_WIDTHS.items():
         seqs, lengths = random_reads(rng, rows, width, dirty_frac=0.5)
@@ -195,6 +201,12 @@ def check_window_kernels(errors: Errors, rng) -> int:
                     K_.canonical_key_planes(s, ln, k, normalized),
                     K_.canonical_key_planes_plain(s, ln, k, normalized),
                     plane_parts,
+                )
+                errors.hold_all(
+                    "hash_tally", what,
+                    K_.canonical_hash_tally(s, ln, k, 16, normalized),
+                    K_.canonical_hash_tally_plain(s, ln, k, 16, normalized),
+                    tally_parts,
                 )
                 cases += 1
     for width, rows in PACKED_WIDTHS.items():
@@ -318,6 +330,37 @@ def check_compact_slots(errors: Errors, rng) -> int:
     return cases
 
 
+def check_block_sort(errors: Errors, rng) -> int:
+    """The block sort over every block size of ``SORT_CHECK_BLOCKS`` on
+    random keys, keys with the top bit set, all-equal, sorted and reversed
+    keys (the last two in unsigned order)."""
+    import numpy as np
+    import torch
+
+    from needletail_tpu_torch.device import kernels as K_
+
+    n = SORT_CHECK_LANES
+    rand = rng.integers(0, 1 << 32, n, dtype=np.uint32)
+    inputs = {
+        "random": rand,
+        "top bit set": rand | np.uint32(0x80000000),
+        "all equal": np.full(n, 0x9E3779B1, np.uint32),
+        "sorted": np.sort(rand),
+        "reversed": np.sort(rand)[::-1].copy(),
+    }
+    cases = 0
+    for what, keys in inputs.items():
+        x = torch.from_numpy(keys.view(np.int32)).to("cuda")
+        for bl in SORT_CHECK_BLOCKS:
+            errors.hold(
+                "block_sort", f"{what} blocks={bl}",
+                K_.bitonic_block_sort(x, bl), K_.block_sort_plain(x, bl),
+            )
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
 def main_path_batch(path: str):
     """The first batch the main paths frame, as device tensors: the packed
     planes and the ASCII planes at batch 131072 x 128."""
@@ -380,6 +423,7 @@ def time_kernels(errors: Errors, path: str) -> dict:
     shapes."""
     import torch
 
+    from needletail_tpu_torch.bench import cuda_ms
     from needletail_tpu_torch.device import count as C_
     from needletail_tpu_torch.device import kernels as K_
 
@@ -433,6 +477,25 @@ def time_kernels(errors: Errors, path: str) -> dict:
         "shape": f"[{BATCH * MAX_LEN}] keys",
     }
     del keys, shifted, got, want
+
+    got = K_.canonical_hash_tally(seqs, ln, K, 16)
+    errors.hold_all(
+        "hash_tally", "main-path batch", got,
+        K_.canonical_hash_tally_plain(seqs, ln, K, 16),
+        ("idx", "weight", "total", "fwd"),
+    )
+    out["hash_tally"] = {
+        "ms": cuda_ms(lambda: K_.canonical_hash_tally(seqs, ln, K, 16), 20),
+        "plain_ms": cuda_ms(
+            lambda: K_.canonical_hash_tally_plain(seqs, ln, K, 16), 5,
+            warmup=1,
+        ),
+        "library_ms": None,
+        "bound": bound_ms(nbytes(seqs, ln, got[0], got[1]) + 16,
+                          lanes * HASH_OPS_PER_LANE),
+        "shape": f"[{BATCH}, {MAX_LEN}] k={K} ascii",
+    }
+    del got
 
     planes = {}
     for k in COUNT_KS:
@@ -504,6 +567,51 @@ def time_kernels(errors: Errors, path: str) -> dict:
         "head_sectors": sectors,
     }
     return out
+
+
+def sort_comparisons(lanes: int, block: int) -> int:
+    """The least comparisons any comparison sort needs to order each
+    ``block``-lane span of ``lanes`` keys: log2(block!) per span."""
+    per_span = math.lgamma(block + 1) / math.log(2)
+    return math.ceil(lanes // block * per_span)
+
+
+def block_sort_times(errors: Errors, exp: dict) -> dict:
+    """The block sort's entry from the experiment's own times: the kernel,
+    ``block_sort_plain`` and ``torch.sort`` over rows of ``block_lanes`` at
+    each block size, the first leading and every one under ``by_block``.
+    The kernel is held against its plain version on the timed keys."""
+    from needletail_tpu_torch.bench import exp_block_sort as E_
+    from needletail_tpu_torch.device import kernels as K_
+
+    x = E_.keys(exp["lanes"], exp["seed"])
+    ms = exp["ms"]
+    by_block = {}
+    for bl in E_.BLOCKS:
+        errors.hold("block_sort", f"timed keys blocks={bl}",
+                    K_.bitonic_block_sort(x, bl), K_.block_sort_plain(x, bl))
+        # each key read once and written once; the operations are the
+        # fewest comparisons that sort the spans, not the network's own
+        by_block[bl] = {
+            "ms": ms[f"block_{bl}"],
+            "plain_ms": ms[f"plain_{bl}"],
+            "library_ms": ms[f"rows_{bl}"],
+            "bound": bound_ms(2 * nbytes(x), sort_comparisons(x.numel(), bl)),
+        }
+    lead = by_block[E_.BLOCKS[0]]
+    return dict(
+        lead,
+        library="torch.sort over rows of block_lanes",
+        shape=f"[{x.numel()}] blocks={E_.BLOCKS[0]}",
+        by_block={
+            str(bl): {
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "library_ms": t["library_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1],
+            }
+            for bl, t in by_block.items()
+        },
+    )
 
 
 class _Interrupt(Exception):
@@ -803,6 +911,274 @@ def run_exact_small(tmp: Path, small: Path, rng) -> None:
         f"{int(got[1][1].sum())} 31-mers; flushes {flushes}")
 
 
+def run_tally_path(small: Path, table1) -> dict:
+    """Phase 7: every ASCII batch of the 16-copy file through the
+    hash-tally kernel, its ``(idx, weight)`` planes counted by
+    ``mxu_histogram16(idx, weight)`` into an int64 table; returns the
+    launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.io.fast_batch import fast_read_batches
+
+    K_.reset_launches()
+    table = torch.zeros(1 << 16, dtype=torch.int64, device="cuda")
+    tallies = torch.zeros(2, dtype=torch.int64, device="cuda")
+    n_bases = 0
+    for b in fast_read_batches(str(small), batch_size=BATCH, max_len=MAX_LEN,
+                               with_quals=False):
+        n_bases += b.num_bases
+        seqs = torch.from_numpy(np.ascontiguousarray(b.seqs)).to("cuda")
+        ln = torch.from_numpy(b.lengths.astype(np.int32)).to("cuda")
+        idx, weight, total, fwd = K_.canonical_hash_tally(seqs, ln, K, 16)
+        table += K_.mxu_histogram16(idx, weight)
+        tallies += torch.stack([total, fwd])
+    launches = dict(K_.LAUNCHES)
+    total, fwd = tallies.tolist()
+    expect((n_bases, total, fwd, table.cpu().numpy()), SMALL_COPIES, table1,
+           "tally path")
+    for name in ("hash_tally", "histogram16"):
+        if launches[name] <= 0:
+            raise AssertionError(f"tally path launched no {name}")
+    log(f"tally path: {n_bases} bases, {total} windows, {fwd} forward, "
+        f"table equal to {SMALL_COPIES} x the one-copy table; launches "
+        f"{launches}")
+    return launches
+
+
+def genome_checksums(hi_s, lo_s, counts) -> tuple:
+    """``bench.py``'s checksums of a device flush: distinct k-mers, their
+    total, and the sums of ``lo * count`` and ``hi * count`` mod 2^32."""
+    import torch
+
+    c = counts.to(torch.int64)
+    m = 0xFFFFFFFF
+    out = torch.stack([
+        (c > 0).sum(), c.sum(),
+        ((lo_s.to(torch.int64) & m) * c).sum() & m,
+        ((hi_s.to(torch.int64) & m) * c).sum() & m,
+    ])
+    return tuple(out.tolist())
+
+
+def equal_arrays(got, want, what: str) -> None:
+    import numpy as np
+
+    for g, w, part in zip(got, want, ("keys", "counts")):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"{what}: {part} differ")
+
+
+def run_genome_path(tmp: Path, card: str) -> dict:
+    """Phase 8: ``genome_spectrum`` over the 5 Mbp synthetic genome at
+    k=31 to ``bench.py``'s goldens; its arrays against the plain path's;
+    the host-filter flush timed alone; k=7 dense and ``packed=False`` at a
+    smaller depth."""
+    import torch
+
+    from needletail_tpu_torch.device import count as C_
+    from needletail_tpu_torch.bench import cuda_ms
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.tiling import (
+        _TileStream,
+        genome_spectrum,
+        make_tile_key_fn,
+    )
+    from needletail_tpu_torch.utils.synth import synthetic_genome
+
+    fa = tmp / "genome.fa"
+    fa.write_bytes(synthetic_genome(GENOME_BASES, seed=31))
+    kw = dict(tile_len=GENOME_TILE, batch_tiles=GENOME_BATCH_TILES)
+
+    def device_run():
+        n, flush = genome_spectrum(str(fa), GENOME_K, sparse_format="device",
+                                   device="cuda", **kw)
+        return n, flush[1].numel(), genome_checksums(*flush)
+
+    K_.reset_launches()
+    C_.reset_flush_routes()
+    t0 = time.perf_counter()
+    n, lanes, cks = device_run()
+    first_s = time.perf_counter() - t0
+    launches = dict(K_.LAUNCHES)
+    if (n, cks) != (GENOME_BASES, GOLD_GENOME):
+        raise AssertionError(f"genome path: {n} bases, checksums {cks} != "
+                             f"{GOLD_GENOME}")
+    if launches["key_planes"] <= 0:
+        raise AssertionError("genome path launched no key_planes")
+    log(f"genome path k={GENOME_K}: {n} bases, {lanes} key lanes, distinct "
+        f"{cks[0]}, windows {cks[1]}, checksums {cks[2]} / {cks[3]}; "
+        f"launches {launches}; first run {first_s:.3f} s")
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = device_run()
+        best = min(best, time.perf_counter() - t0)
+        if again[2] != GOLD_GENOME:
+            raise AssertionError(f"timed genome path: checksums {again[2]}")
+    log(f"genome e2e (device flush and checksums): best of 2 {best:.4f} s = "
+        f"{GENOME_BASES / best:.6e} bases/s ({card})")
+    prof = device_profile(device_run)
+    log("genome device profile: " + json.dumps(prof))
+
+    C_.reset_flush_routes()
+    t0 = time.perf_counter()
+    got = genome_spectrum(str(fa), GENOME_K, sparse_format="arrays",
+                          device="cuda", **kw)
+    arrays_s = time.perf_counter() - t0
+    flushes = {r: c for r, c in C_.FLUSH_ROUTES.items() if c}
+    want = genome_spectrum(str(fa), GENOME_K, sparse_format="arrays",
+                           device="cpu", **kw)
+    if got[0] != want[0]:
+        raise AssertionError(f"genome arrays: {got[0]} != {want[0]} bases")
+    equal_arrays(got[1], want[1], "genome arrays")
+    if flushes != {"host_filter": 1}:
+        raise AssertionError(f"genome arrays: flushes {flushes}")
+    log(f"genome arrays: equal to the plain path's ({len(got[1][0])} "
+        f"distinct); flushes {flushes}; {arrays_s:.4f} s ({card})")
+
+    # the host-filter flush alone, on the key planes genome_spectrum holds
+    keys_fn = make_tile_key_fn(GENOME_K, GENOME_TILE, packed=True,
+                               device="cuda")
+    parts = []
+    for codes, vbits, lengths in _TileStream(
+        str(fa), GENOME_K, GENOME_TILE, GENOME_BATCH_TILES, packed=True
+    ):
+        parts.append(keys_fn(
+            torch.from_numpy(codes).to("cuda"),
+            torch.from_numpy(lengths).to("cuda"),
+            None if vbits is None else torch.from_numpy(vbits).to("cuda"),
+        ))
+    torch.cuda.synchronize()
+    C_.reset_flush_routes()
+    flush_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        C_.finalize_sparse(parts)  # ends in host arrays: synchronized
+        flush_s = min(flush_s, time.perf_counter() - t0)
+    if C_.FLUSH_ROUTES["host_filter"] != 3:
+        raise AssertionError(f"flush routes {C_.FLUSH_ROUTES}")
+    runs_ms = cuda_ms(
+        lambda: C_.unique_counts(*C_._concat_pad_parts(parts, 1 << 20)), 3,
+        warmup=1,
+    )
+    log(f"host_filter flush at {lanes} lanes: best of 3 {flush_s * 1e3:.4f} "
+        f"ms, of which the device run count (concatenate, pad, sort, run "
+        f"lengths) {runs_ms:.4f} ms ({card})")
+    del parts
+
+    small_fa = tmp / "genome_small.fa"
+    small_fa.write_bytes(synthetic_genome(SMALL_GENOME_BASES, seed=7))
+    small_kw = dict(tile_len=GENOME_TILE, batch_tiles=16)
+    for k, opts, what, kernel in (
+        (7, {}, "k=7 dense", "histogram16"),
+        (GENOME_K, {"packed": False, "sparse_format": "arrays"},
+         "packed=False", "key_planes"),
+    ):
+        K_.reset_launches()
+        got = genome_spectrum(str(small_fa), k, device="cuda", **small_kw,
+                              **opts)
+        n_launch = K_.LAUNCHES[kernel]
+        want = genome_spectrum(str(small_fa), k, device="cpu", **small_kw,
+                               **opts)
+        if got[0] != want[0] or got[0] != SMALL_GENOME_BASES:
+            raise AssertionError(f"genome {what}: {got[0]} bases")
+        if isinstance(want[1], tuple):
+            equal_arrays(got[1], want[1], f"genome {what}")
+        elif got[1].dtype != want[1].dtype or not (got[1] == want[1]).all():
+            raise AssertionError(f"genome {what}: table differs")
+        if n_launch <= 0:
+            raise AssertionError(f"genome {what} launched no {kernel}")
+        log(f"genome {what} ({SMALL_GENOME_BASES} bases): equal to the plain "
+            f"path's; {kernel} launches {n_launch}")
+    return {
+        "launches": launches, "flushes": flushes, "lanes": lanes,
+        "best_s": best, "bases_per_s": GENOME_BASES / best,
+        "arrays_s": arrays_s, "host_filter_ms": flush_s * 1e3,
+        "flush_runs_ms": runs_ms,
+    }
+
+
+def expect_multi(result, copies: int, ref, what: str) -> None:
+    """``multi_k_count_file`` output equal to ``copies`` x the one-copy
+    ``ref`` for every k."""
+    (n_bases, spec), (n1, spec1) = result, ref
+    if list(spec) != list(spec1):
+        raise AssertionError(f"{what}: ks {list(spec)} != {list(spec1)}")
+    for k in spec1:
+        expect_spectrum((n_bases, spec[k]), copies, (n1, spec1[k]),
+                        f"{what} k={k}")
+
+
+def run_multi_k(big: Path, small: Path, tmp: Path, card: str) -> dict:
+    """Phase 9: ``multi_k_count_file`` over 64M bases at k = 4, 21, 31 to
+    256 x the plain path's one-copy spectra, its bases/s, and an
+    interrupted ``multik`` checkpoint and its resume at the 16-copy
+    depth."""
+    from needletail_tpu_torch.checkpoint import load_stream_checkpoint
+    from needletail_tpu_torch.device import count as C_
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.pipeline import multi_k_count_file
+
+    kw = dict(batch_size=BATCH, max_len=MAX_LEN, sparse_format="arrays")
+    ref = multi_k_count_file(str(FQ), MULTI_KS, device="cpu", host_workers=1,
+                             **kw)
+    K_.reset_launches()
+    C_.reset_flush_routes()
+    t0 = time.perf_counter()
+    got = multi_k_count_file(str(big), MULTI_KS, device="cuda", **kw)
+    first_s = time.perf_counter() - t0
+    launches = dict(K_.LAUNCHES)
+    flushes = {r: c for r, c in C_.FLUSH_ROUTES.items() if c}
+    expect_multi(got, COPIES, ref, "multi-k main path")
+    for name in ("histogram16", "key_planes"):
+        if launches[name] <= 0:
+            raise AssertionError(f"multi-k main path launched no {name}")
+    totals = {
+        k: int((spec[1] if isinstance(spec, tuple) else spec).sum())
+        for k, spec in got[1].items()
+    }
+    log(f"multi-k main path ks={MULTI_KS}: {got[0]} bases, k-mers by k "
+        f"{totals}; launches {launches}; flushes {flushes}; first run "
+        f"{first_s:.3f} s")
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = multi_k_count_file(str(big), MULTI_KS, device="cuda", **kw)
+        best = min(best, time.perf_counter() - t0)
+        expect_multi(again, COPIES, ref, "timed multi-k path")
+    log(f"multi-k e2e: best of 2 {best:.4f} s = {got[0] / best:.6e} "
+        f"bases/s ({card})")
+    del got, again
+
+    ck = tmp / "multik.npz"
+    ckw = dict(batch_size=8192, max_len=MAX_LEN, sparse_format="arrays",
+               device="cuda", host_workers=1)
+    try:
+        multi_k_count_file(str(small), MULTI_KS, checkpoint_every=1,
+                           checkpoint_path=str(ck), meter=_StopAfter(3), **ckw)
+    except _Interrupt:
+        pass
+    else:
+        raise AssertionError("the interrupted multi-k run ran to its end")
+    saved = load_stream_checkpoint(ck)
+    ks = tuple(int(x) for x in saved["meta"]["ks"])
+    if saved["kind"] != "multik" or ks != MULTI_KS or not (
+        0 < saved["file_offset"] < small.stat().st_size
+    ):
+        raise AssertionError(f"multik checkpoint {saved['kind']} ks={ks} at "
+                             f"{saved['file_offset']}")
+    expect_multi(
+        multi_k_count_file(str(small), MULTI_KS, resume_from=str(ck), **ckw),
+        SMALL_COPIES, ref, "resumed multi-k run",
+    )
+    log(f"multik resume from byte {saved['file_offset']}: equal to "
+        f"{SMALL_COPIES} x the one-copy spectra")
+    return {"launches": launches, "flushes": flushes, "best_s": best,
+            "bases_per_s": COPIES * GOLD_BASES / best}
+
+
 def kernel_entry(name, source, replaces, launches, worst, t) -> dict:
     ms, by = t["bound"]
     entry = {
@@ -821,7 +1197,7 @@ def kernel_entry(name, source, replaces, launches, worst, t) -> dict:
         "shape": t["shape"],
     }
     for key in ("ascii_ms", "ascii_plain_ms", "library", "flush_sort_ms",
-                "flush_runs_ms", "distinct", "head_sectors"):
+                "flush_runs_ms", "distinct", "head_sectors", "by_block"):
         if key in t:
             entry[key] = t[key]
     if "ascii_bound" in t:
@@ -851,6 +1227,7 @@ def run() -> int:
 
     import numpy as np
 
+    from needletail_tpu_torch.bench import card_line, exp_block_sort
     from needletail_tpu_torch.io import native
     from needletail_tpu_torch.utils.profiling import ThroughputMeter
     from needletail_tpu_torch.checkpoint import load_stream_checkpoint
@@ -887,8 +1264,10 @@ def run() -> int:
     n_window = check_window_kernels(errors, rng)
     n_hist = check_histogram(errors, rng)
     n_compact = check_compact_slots(errors, rng)
-    log(f"kernel checks: hash_keys and key_planes {n_window} cases each, "
-        f"histogram16 {n_hist} cases, compact_slots {n_compact} cases equal "
+    n_sort = check_block_sort(errors, rng)
+    log(f"kernel checks: hash_keys and key_planes {n_window} cases each "
+        f"(hash_tally the ASCII ones), histogram16 {n_hist} cases, "
+        f"compact_slots {n_compact} cases, block_sort {n_sort} cases equal "
         f"to the plain versions at tolerance 0 in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -980,11 +1359,28 @@ def run() -> int:
         # ---- 6. the exact path's other routes --------------------------
         run_exact_small(tmp, small, rng)
 
-        # ---- 7. kernel times at the main paths' shapes -----------------
+        # ---- 7. the tally path -------------------------------------------
+        tally_launches = run_tally_path(small, table1)
+
+        # ---- 8. the genome path at full size ----------------------------
+        genome = run_genome_path(tmp, card)
+
+        # ---- 9. multi-k at full width -----------------------------------
+        multi = run_multi_k(big, small, tmp, card)
+
+        # ---- 10. the block-sort experiment ------------------------------
+        K_.reset_launches()
+        sort_exp = exp_block_sort.run(log=log)
+        sort_launches = K_.LAUNCHES["block_sort"]
+        if sort_launches <= 0:
+            raise AssertionError("the block-sort experiment launched no sort")
+
+        # ---- 11. kernel times at the main paths' shapes ----------------
         times = time_kernels(errors, str(big))
+        times["block_sort"] = block_sort_times(errors, sort_exp)
         log("kernel times: " + json.dumps(times))
 
-    # ---- 8. nothing this run started outlives it ----------------------
+    # ---- 12. nothing this run started outlives it ---------------------
     running = child_processes()
     log(f"children before the stop: {running or 'none'}")
     left = stop_children()
@@ -1016,8 +1412,36 @@ def run() -> int:
             errors.worst["compact_slots"], times["compact_slots"],
         ),
     ]
+    kernels += [
+        kernel_entry(
+            "hash_tally", "needletail_tpu_torch/csrc/hash_keys.cu",
+            f"{pk}:275", tally_launches["hash_tally"],
+            errors.worst["hash_tally"], times["hash_tally"],
+        ),
+        kernel_entry(
+            "block_sort", "needletail_tpu_torch/csrc/block_sort.cu",
+            "benchmarks/exp_mosaic_sort.py:84", sort_launches,
+            errors.worst["block_sort"], times["block_sort"],
+        ),
+    ]
     kernels[0]["also_replaces"] = f"{pk}:301"
     kernels[2]["also_replaces"] = f"{pk}:324"
+    # launches on the other paths that run a kernel
+    kernels[1]["launches_by_path"] = {
+        "hash": launches["histogram16"],
+        "tally": tally_launches["histogram16"],
+        "multi-k": multi["launches"]["histogram16"],
+    }
+    kernels[2]["launches_by_path"] = {
+        "exact k=21": exact[K]["launches"]["key_planes"],
+        "genome": genome["launches"]["key_planes"],
+        "multi-k": multi["launches"]["key_planes"],
+    }
+    kernels[3]["launches_by_path"] = {
+        "exact k=21": exact[K]["launches"]["compact_slots"],
+        "genome": genome["launches"]["compact_slots"],
+        "multi-k": multi["launches"]["compact_slots"],
+    }
     for entry in kernels:
         entry["card"] = name
         entry["power_limit"] = power
@@ -1026,6 +1450,14 @@ def run() -> int:
                   "distinct": v["distinct"], "card": name,
                   "power_limit": power}
         for k, v in exact.items()
+    }))
+    log("genome and multi-k e2e: " + json.dumps({
+        "genome": {key: genome[key] for key in (
+            "bases_per_s", "best_s", "arrays_s", "host_filter_ms",
+            "flush_runs_ms", "lanes", "flushes")},
+        "multi_k": {key: multi[key] for key in ("bases_per_s", "best_s",
+                                                "flushes")},
+        "card": name, "power_limit": power,
     }))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -14,7 +14,7 @@ from __future__ import annotations
 import os
 import tempfile
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -77,18 +77,21 @@ def check_counting_meta(
 
 def load_resume_checkpoint(
     resume_from: Union[str, Path],
-    kind: str,
+    kind: Union[str, Tuple[str, ...]],
     k: Optional[int] = None,
     validate=None,
     **meta_kwargs,
 ) -> dict:
     """Load a resume checkpoint and check its kind, k, counting semantics
-    and, through ``validate(ck)``, anything driver-specific."""
+    and, through ``validate(ck)``, anything driver-specific.  ``kind`` may
+    be a tuple of kinds whose files interchange (flat and sharded
+    multi-k)."""
+    kinds = (kind,) if isinstance(kind, str) else tuple(kind)
     ck = load_stream_checkpoint(resume_from)
-    if ck["kind"] != kind or (k is not None and ck["k"] != k):
+    if ck["kind"] not in kinds or (k is not None and ck["k"] != k):
         raise ValueError(
             f"checkpoint {str(resume_from)!r} is kind={ck['kind']} "
-            f"k={ck['k']}, expected kind={kind}"
+            f"k={ck['k']}, expected kind={'|'.join(kinds)}"
             + ("" if k is None else f" k={k}")
         )
     check_counting_meta(ck, resume_from, **meta_kwargs)
@@ -176,7 +179,7 @@ def checkpoint_source(
 
 
 def prepare_checkpoint_stream(
-    kind: str,
+    kind: Union[str, Tuple[str, ...]],
     k: Optional[int] = None,
     *,
     checkpoint_every=None,

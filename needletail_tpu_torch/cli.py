@@ -2,10 +2,12 @@
 
     python -m needletail_tpu_torch.cli hash-count reads.fq -k 21
     python -m needletail_tpu_torch.cli count reads.fq -k 31 --top 10
+    python -m needletail_tpu_torch.cli count reads.fq -k 4,21,31
+    python -m needletail_tpu_torch.cli spectrum genome.fa -k 31 -o spec.npz
 
-print what ``needletail-tpu hash-count`` and ``needletail-tpu count``
-print.  ``--sharded`` and, for ``count``, a list of k values, ``--bucketed``
-and ``--quality-cutoff`` are not ported yet.
+print what ``needletail-tpu hash-count``, ``count`` and ``spectrum``
+print.  ``--sharded`` and, for ``count``, ``--bucketed`` and
+``--quality-cutoff`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from typing import Optional
 
 
 def _profile_meter(args):
@@ -49,15 +52,81 @@ def _dump_spectrum(fh, keys, counts, k: int) -> None:
         fh.write(b"\n".join(lines.tolist()) + b"\n")
 
 
+def _sparse_pairs(spec):
+    """One k's spectrum as sorted ``(keys, counts)`` pairs (a dense table
+    through its nonzero bins)."""
+    import numpy as np
+
+    if isinstance(spec, tuple):
+        return spec
+    keys = np.flatnonzero(spec).astype(np.uint64)
+    return keys, spec[keys.astype(np.int64)]
+
+
+def _top_kmers(keys, counts, k: int, top: int) -> None:
+    import numpy as np
+
+    for i in np.argsort(counts)[::-1][:top]:
+        print(f"{_decode(int(keys[i]), k)}\t{int(counts[i])}")
+
+
+def _write_dump(dump: str, spectra) -> None:
+    """``--dump``: every ``(keys, counts, k)`` spectrum as TSV, to a file
+    or with ``-`` to stdout."""
+    if dump == "-":
+        for keys, counts, k in spectra:
+            _dump_spectrum(sys.stdout.buffer, keys, counts, k)
+        return
+    with open(dump, "wb") as fh:
+        for keys, counts, k in spectra:
+            _dump_spectrum(fh, keys, counts, k)
+
+
+def _report_multi_k(spec, n_bases, ks, args) -> None:
+    """Per-k summaries on stderr, one npz of every spectrum, the TSV dump
+    and the top listings, as ``needletail-tpu count -k 4,21,31`` prints
+    them."""
+    import numpy as np
+
+    out = {k: _sparse_pairs(sp) for k, sp in spec.items()}
+    for k, (keys, counts) in out.items():
+        print(
+            f"# k={k}: {int(counts.sum())} canonical k-mers, "
+            f"{len(keys)} distinct",
+            file=sys.stderr,
+        )
+    print(f"# {n_bases} bases ({len(ks)} k values in one pass)",
+          file=sys.stderr)
+    if args.output:
+        np.savez_compressed(
+            args.output,
+            ks=np.asarray(ks),
+            **{f"keys_{k}": v[0] for k, v in out.items()},
+            **{f"counts_{k}": v[1] for k, v in out.items()},
+        )
+        print(f"# spectra written to {args.output}", file=sys.stderr)
+    if args.dump:
+        _write_dump(args.dump, [(keys, counts, k) for k, (keys, counts) in out.items()])
+    if args.top:
+        for k, (keys, counts) in out.items():
+            print(f"# top {args.top} for k={k}:")
+            _top_kmers(keys, counts, k, args.top)
+
+
 def _cmd_count(args) -> int:
     import numpy as np
 
     from .device.pipeline import count_file
 
+    ks = tuple(int(x) for x in str(args.k).split(","))
+    if args.profile and len(ks) > 1:
+        raise SystemExit(
+            "--profile instruments the single-k flat stream (use one k)"
+        )
     meter = _profile_meter(args)
     n_bases, spec = count_file(
         _paths(args),
-        k=args.k,
+        k=ks if len(ks) > 1 else ks[0],
         batch_size=args.batch_size,
         sparse_format="arrays",
         host_workers=args.host_workers,
@@ -67,14 +136,13 @@ def _cmd_count(args) -> int:
         meter=meter,
         device=args.device,
     )
+    if len(ks) > 1:
+        _report_multi_k(spec, n_bases, ks, args)
+        return 0
     if meter is not None:
         print(meter.report(), file=sys.stderr)
-    if isinstance(spec, tuple):
-        keys, counts = spec
-    else:
-        keys = np.flatnonzero(spec).astype(np.uint64)
-        counts = spec[keys.astype(np.int64)]
-    k = args.k
+    keys, counts = _sparse_pairs(spec)
+    k = ks[0]
     print(
         f"# {n_bases} bases, {int(counts.sum())} canonical {k}-mers, "
         f"{len(keys)} distinct",
@@ -84,14 +152,31 @@ def _cmd_count(args) -> int:
         np.savez_compressed(args.output, keys=keys, counts=counts, k=k)
         print(f"# spectrum written to {args.output}", file=sys.stderr)
     if args.dump:
-        if args.dump == "-":
-            _dump_spectrum(sys.stdout.buffer, keys, counts, k)
-        else:
-            with open(args.dump, "wb") as fh:
-                _dump_spectrum(fh, keys, counts, k)
+        _write_dump(args.dump, [(keys, counts, k)])
     if args.top:
-        for i in np.argsort(counts)[::-1][: args.top]:
-            print(f"{_decode(int(keys[i]), k)}\t{int(counts[i])}")
+        _top_kmers(keys, counts, k, args.top)
+    return 0
+
+
+def _cmd_spectrum(args) -> int:
+    import numpy as np
+
+    from .device.tiling import genome_spectrum
+
+    n_bases, spec = genome_spectrum(
+        args.path, k=args.k, tile_len=args.tile_len, sparse_format="arrays",
+        device=args.device,
+    )
+    keys, counts = _sparse_pairs(spec)
+    print(f"# {n_bases} bases, {len(keys)} distinct {args.k}-mers",
+          file=sys.stderr)
+    if args.output:
+        np.savez_compressed(args.output, keys=keys, counts=counts, k=args.k)
+        print(f"# spectrum written to {args.output}", file=sys.stderr)
+    if args.dump:
+        _write_dump(args.dump, [(keys, counts, args.k)])
+    if args.top:
+        _top_kmers(keys, counts, args.k, args.top)
     return 0
 
 
@@ -132,17 +217,33 @@ def _cmd_hash_count(args) -> int:
     return 0
 
 
-def _add_common_flags(p, batch_size: int) -> None:
-    p.add_argument("path", nargs="+",
-                   help="input file(s); several files accumulate into ONE "
-                        "result")
-    p.add_argument("-k", type=int, required=True)
-    p.add_argument("--batch-size", type=int, default=batch_size)
-    p.add_argument("--host-workers", type=int, default=None,
-                   help="framing processes (default: auto from CPU count)")
+def _add_device_flag(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels, default) or "
                         "cpu (their plain PyTorch versions)")
+
+
+def _add_output_flags(p, what: str) -> None:
+    p.add_argument("--top", type=int, default=0,
+                   help="print the N most frequent")
+    p.add_argument("-o", "--output", help=f"write {what} .npz")
+    p.add_argument("--dump",
+                   help="write the FULL spectrum as kmer\\tcount TSV "
+                        "(keys ascending; '-' = stdout)")
+
+
+def _add_common_flags(p, batch_size: int, k_help: Optional[str] = None) -> None:
+    p.add_argument("path", nargs="+",
+                   help="input file(s); several files accumulate into ONE "
+                        "result")
+    if k_help is None:
+        p.add_argument("-k", type=int, required=True)
+    else:
+        p.add_argument("-k", required=True, help=k_help)
+    p.add_argument("--batch-size", type=int, default=batch_size)
+    p.add_argument("--host-workers", type=int, default=None,
+                   help="framing processes (default: auto from CPU count)")
+    _add_device_flag(p)
     p.add_argument("--profile", action="store_true",
                    help="print a per-stage throughput breakdown (frame, "
                         "h2d, wait, dispatch, drain) to stderr")
@@ -161,13 +262,11 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("count", help="exact canonical k-mer spectrum")
-    _add_common_flags(p, batch_size=4096)
-    p.add_argument("--top", type=int, default=0,
-                   help="print the N most frequent")
-    p.add_argument("-o", "--output", help="write spectrum .npz")
-    p.add_argument("--dump",
-                   help="write the FULL spectrum as kmer\\tcount TSV "
-                        "(keys ascending; '-' = stdout)")
+    _add_common_flags(
+        p, batch_size=4096,
+        k_help="k, or a comma list (e.g. 4,21,31) counted in ONE pass",
+    )
+    _add_output_flags(p, "spectrum")
     p.set_defaults(fn=_cmd_count)
 
     p = sub.add_parser("hash-count", help="hash count table (headline pipeline)")
@@ -175,6 +274,14 @@ def main(argv=None) -> int:
     p.add_argument("--table-bits", type=int, default=16)
     p.add_argument("-o", "--output", help="write table .npz")
     p.set_defaults(fn=_cmd_hash_count)
+
+    p = sub.add_parser("spectrum", help="whole-genome spectrum via halo tiling")
+    p.add_argument("path")
+    p.add_argument("-k", type=int, required=True)
+    p.add_argument("--tile-len", type=int, default=8192)
+    _add_device_flag(p)
+    _add_output_flags(p, "spectrum")
+    p.set_defaults(fn=_cmd_spectrum)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -3,8 +3,9 @@
 // Replaces needletail_tpu/device/pallas_kernels.py:canonical_hash_keys
 // (ASCII bytes in) and canonical_hash_keys_packed (2-bit codes plus an
 // optional validity bitplane in), and in its planes mode
-// canonical_key_planes / canonical_key_planes_packed.  For every lane p
-// of a [rows, L] read plane it computes:
+// canonical_key_planes / canonical_key_planes_packed, and in its tally
+// mode canonical_hash_tally (pallas_kernels.py:275, body _kernel :175).
+// For every lane p of a [rows, L] read plane it computes:
 //
 //   code      A0 C1 G2 T3 (ASCII: case-folded with & 0xDF, U counts as T
 //             only when `normalized`); anything else is invalid
@@ -13,19 +14,23 @@
 //             significant) and its reverse complement; a tie keeps forward
 //   hi, lo    canonical >> 32 and its low 32 bits (for k <= 16, hi = 0)
 //
-// and writes, by mode, either
+// and writes, by mode, one of
 //
 //   keys      ((lo * 0x9E3779B1) ^ (hi * 0x85EBCA77)) mod 2^32 & mask,
 //             -1 where invalid                          (hash keys)
 //   hi, lo    two int32 planes of the uint32 bit patterns, both
 //             0xFFFFFFFF (-1) where invalid             (key planes)
+//   idx, w    the hash key as above but 0 where invalid, and an int32
+//             weight plane, 1 where valid and 0 where not   (tally)
 //
 // plus the tallies total (valid windows) and fwd (valid windows taken
 // from the forward strand), added to two 64-bit counters.  The planes
 // are what the Pallas planes kernel writes before its bitcast to uint32.
 //
 // What bounds it on Hopper: the planes it writes (4 or 8 bytes a lane)
-// and the per-lane window build (k shared-memory reads and shifts).  The TPU
+// and the per-lane window build (k shared-memory reads and shifts); the
+// tally mode writes 8 bytes a lane, twice the keys mode, for the same
+// information, as the TPU kernel's scatter-add interface asked.  The TPU
 // kernel built windows with doubling ladders of rolled planes because a
 // TPU lane has no 64-bit integers; here one thread holds a whole k <= 31
 // window in a uint64_t.  Each block stages one tile of codes (plus the
@@ -80,13 +85,18 @@ __device__ __forceinline__ uint8_t load_code(const Planes& in, long long row,
   return c;
 }
 
-// kPlanes: write the canonical (hi, lo) planes to keys / keys_lo instead
-// of the hash keys to keys
-template <bool kPlanes>
+// what a launch writes to keys (and keys2)
+enum Mode : int {
+  kKeys = 0,    // hash keys, -1 where invalid
+  kPlanes = 1,  // canonical hi to keys, lo to keys2, -1 where invalid
+  kTally = 2,   // hash keys, 0 where invalid, to keys; the 0/1 weight to keys2
+};
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
     hash_keys_kernel(Planes in, const int32_t* __restrict__ lengths,
                      int32_t* __restrict__ keys,
-                     int32_t* __restrict__ keys_lo,
+                     int32_t* __restrict__ keys2,
                      unsigned long long* __restrict__ tallies, long long rows,
                      long long L, int k, uint32_t mask) {
   __shared__ uint8_t tile[kThreads + kMaxK];
@@ -127,12 +137,17 @@ __global__ void __launch_bounds__(kThreads)
       const uint64_t canon = use_rc ? rc : fwd;
       const uint32_t hi = (uint32_t)(canon >> 32);
       const uint32_t lo = (uint32_t)canon;
-      if (kPlanes) {
+      if (kMode == kPlanes) {
         keys[g] = valid ? (int32_t)hi : -1;
-        keys_lo[g] = valid ? (int32_t)lo : -1;
+        keys2[g] = valid ? (int32_t)lo : -1;
       } else {
         const uint32_t h = ((lo * 0x9E3779B1u) ^ (hi * 0x85EBCA77u)) & mask;
-        keys[g] = valid ? (int32_t)h : -1;
+        if (kMode == kTally) {
+          keys[g] = valid ? (int32_t)h : 0;
+          keys2[g] = valid ? 1 : 0;
+        } else {
+          keys[g] = valid ? (int32_t)h : -1;
+        }
       }
     }
     // both counts come back to every thread; the barrier also keeps the
@@ -146,9 +161,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kPlanes>
+template <int kMode>
 int launch(const void* data, const void* vbits, const void* lengths,
-           void* keys, void* keys_lo, void* tallies, long long rows,
+           void* keys, void* keys2, void* tallies, long long rows,
            long long L, long long stride, long long vstride, int k,
            unsigned int mask, int packed, int normalized, void* stream) {
   if (k < 1 || k > kMaxK || rows <= 0 || L <= 0) {
@@ -164,10 +179,10 @@ int launch(const void* data, const void* vbits, const void* lengths,
   Planes in{static_cast<const uint8_t*>(data),
             static_cast<const uint8_t*>(vbits), stride, vstride, packed,
             normalized};
-  hash_keys_kernel<kPlanes>
+  hash_keys_kernel<kMode>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           in, static_cast<const int32_t*>(lengths),
-          static_cast<int32_t*>(keys), static_cast<int32_t*>(keys_lo),
+          static_cast<int32_t*>(keys), static_cast<int32_t*>(keys2),
           static_cast<unsigned long long*>(tallies), rows, L, k, mask);
   return (int)cudaGetLastError();
 }
@@ -181,8 +196,20 @@ extern "C" int nt_hash_keys(const void* data, const void* vbits,
                             long long rows, long long L, long long stride,
                             long long vstride, int k, unsigned int mask,
                             int packed, int normalized, void* stream) {
-  return launch<false>(data, vbits, lengths, keys, nullptr, tallies, rows, L,
+  return launch<kKeys>(data, vbits, lengths, keys, nullptr, tallies, rows, L,
                        stride, vstride, k, mask, packed, normalized, stream);
+}
+
+// The tally mode: idx and weight [rows, L] int32 and tallies [2] (zeroed
+// by the caller) are written on `stream`.
+extern "C" int nt_hash_tally(const void* data, const void* vbits,
+                             const void* lengths, void* idx, void* weight,
+                             void* tallies, long long rows, long long L,
+                             long long stride, long long vstride, int k,
+                             unsigned int mask, int packed, int normalized,
+                             void* stream) {
+  return launch<kTally>(data, vbits, lengths, idx, weight, tallies, rows, L,
+                        stride, vstride, k, mask, packed, normalized, stream);
 }
 
 // The planes mode: hi and lo [rows, L] int32 and tallies [2] (zeroed by
@@ -192,6 +219,6 @@ extern "C" int nt_key_planes(const void* data, const void* vbits,
                              void* tallies, long long rows, long long L,
                              long long stride, long long vstride, int k,
                              int packed, int normalized, void* stream) {
-  return launch<true>(data, vbits, lengths, hi, lo, tallies, rows, L, stride,
-                      vstride, k, 0u, packed, normalized, stream);
+  return launch<kPlanes>(data, vbits, lengths, hi, lo, tallies, rows, L,
+                         stride, vstride, k, 0u, packed, normalized, stream);
 }

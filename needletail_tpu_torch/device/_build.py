@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "needletail_tpu_torch"
 
-SOURCES = ("hash_keys", "histogram16", "compact_slots")
+SOURCES = ("hash_keys", "histogram16", "compact_slots", "block_sort")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

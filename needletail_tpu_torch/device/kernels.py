@@ -12,7 +12,13 @@ Counterpart of ``needletail_tpu/device/pallas_kernels.py``:
   * :func:`mxu_histogram16` runs ``csrc/histogram16.cu`` (replaces the
     Pallas ``_packed_hist_kernel`` / ``_hist_kernel``, :408/:469);
   * :func:`mxu_compact_slots` runs ``csrc/compact_slots.cu`` (replaces
-    ``_compact_kernel`` through ``mxu_compact_slots``, :585/:672).
+    ``_compact_kernel`` through ``mxu_compact_slots``, :585/:672);
+  * :func:`canonical_hash_tally` runs the tally mode of
+    ``csrc/hash_keys.cu`` (replaces ``_kernel``, :175, through
+    ``canonical_hash_tally``, :275);
+  * :func:`bitonic_block_sort` runs ``csrc/block_sort.cu`` (replaces
+    ``_bitonic_kernel`` through ``bitonic_block_sort`` of the experiment
+    ``benchmarks/exp_mosaic_sort.py``, :39/:84).
 
 Key planes are int32 tensors holding uint32 bit patterns, with the
 sentinel 0xFFFFFFFF (-1) on invalid lanes, as the Pallas planes kernel
@@ -26,7 +32,8 @@ each kernel against them.  They compute in int64: PyTorch implements no
 ``uint32`` shifts on the CPU, and an int64 product that wraps keeps the
 low 32 bits a ``uint32`` product would give.
 
-:data:`LAUNCHES` counts kernel launches by kernel name, one per launch.
+:data:`LAUNCHES` counts kernel launches by kernel name, one per launch
+(one per sort for the block sort, whatever its number of passes).
 """
 
 from __future__ import annotations
@@ -53,6 +60,10 @@ __all__ = [
     "histogram16_plain",
     "mxu_compact_slots",
     "compact_slots_plain",
+    "canonical_hash_tally",
+    "canonical_hash_tally_plain",
+    "bitonic_block_sort",
+    "block_sort_plain",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -63,6 +74,7 @@ BINS = 1 << 16
 
 LAUNCHES: Dict[str, int] = {
     "hash_keys": 0, "histogram16": 0, "key_planes": 0, "compact_slots": 0,
+    "hash_tally": 0, "block_sort": 0,
 }
 
 
@@ -133,16 +145,20 @@ def _canonical_from_codes(
     return torch.where(use_rc, rc, fwd), valid, use_rc
 
 
+def _hash(canon: torch.Tensor, table_bits: int) -> torch.Tensor:
+    """The table index of int64 canonical windows (in int64)."""
+    hi = canon >> 32
+    lo = canon & 0xFFFFFFFF
+    # the int64 products may wrap; their low 32 bits are the uint32 ones
+    return ((lo * HASH_C1) ^ (hi * HASH_C2)) & ((1 << table_bits) - 1)
+
+
 def _hash_keys_from_codes(
     codes: torch.Tensor, lengths: torch.Tensor, k: int, table_bits: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version over per-base codes ``[B, L]`` (255 invalid)."""
     canon, valid, use_rc = _canonical_from_codes(codes, lengths, k)
-    hi = canon >> 32
-    lo = canon & 0xFFFFFFFF
-    # the int64 products may wrap; their low 32 bits are the uint32 ones
-    h = ((lo * HASH_C1) ^ (hi * HASH_C2)) & ((1 << table_bits) - 1)
-    keys = torch.where(valid, h, -1).to(torch.int32)
+    keys = torch.where(valid, _hash(canon, table_bits), -1).to(torch.int32)
     total = valid.sum()
     fwd_n = (valid & ~use_rc).sum()
     return keys, total, fwd_n
@@ -221,6 +237,11 @@ def _hash_keys_lib() -> ctypes.CDLL:
         planes = lib.nt_key_planes
         planes.argtypes = [p, p, p, p, p, p, ll, ll, ll, ll, i, i, i, p]
         planes.restype = i
+        tally = lib.nt_hash_tally
+        tally.argtypes = [
+            p, p, p, p, p, p, ll, ll, ll, ll, i, ctypes.c_uint, i, i, p,
+        ]
+        tally.restype = i
     return lib
 
 
@@ -265,7 +286,8 @@ def _launch_hash_keys(
     return keys, tallies[0], tallies[1]
 
 
-def _launch_key_planes(
+def _launch_two_planes(
+    name: str,
     data: torch.Tensor,
     vbits: Optional[torch.Tensor],
     lengths: torch.Tensor,
@@ -273,37 +295,43 @@ def _launch_key_planes(
     k: int,
     packed: bool,
     normalized: bool,
+    table_bits: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two-plane modes of ``hash_keys.cu``: ``key_planes`` (hi, lo)
+    and ``hash_tally`` (idx, weight, hashed into ``table_bits``)."""
     _check_contiguous(data=data, vbits=vbits, lengths=lengths)
     b = data.shape[0]
-    hi = torch.empty((b, lanes), dtype=torch.int32, device=data.device)
-    lo = torch.empty_like(hi)
+    first = torch.empty((b, lanes), dtype=torch.int32, device=data.device)
+    second = torch.empty_like(first)
     tallies = torch.zeros(2, dtype=torch.int64, device=data.device)
     if b == 0 or lanes == 0:
-        return hi, lo, tallies[0], tallies[1]
-    fn = _hash_keys_lib().nt_key_planes
+        return first, second, tallies[0], tallies[1]
+    lib = _hash_keys_lib()
+    fn = lib.nt_hash_tally if name == "hash_tally" else lib.nt_key_planes
+    mask = () if table_bits is None else ((1 << table_bits) - 1,)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = fn(
             data.data_ptr(),
             None if vbits is None else vbits.data_ptr(),
             lengths.data_ptr(),
-            hi.data_ptr(),
-            lo.data_ptr(),
+            first.data_ptr(),
+            second.data_ptr(),
             tallies.data_ptr(),
             b,
             lanes,
             data.shape[1],
             0 if vbits is None else vbits.shape[1],
             k,
+            *mask,
             int(packed),
             int(normalized),
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"key_planes kernel launch failed: CUDA error {err}")
-    LAUNCHES["key_planes"] += 1
-    return hi, lo, tallies[0], tallies[1]
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    return first, second, tallies[0], tallies[1]
 
 
 def _check_packed(
@@ -349,8 +377,8 @@ def canonical_key_planes(
     _check_ascii(seqs, lengths)
     if not _on_cuda(seqs, lengths):
         return canonical_key_planes_plain(seqs, lengths, k, normalized)
-    return _launch_key_planes(
-        seqs, None, lengths, seqs.shape[1], k, False, normalized
+    return _launch_two_planes(
+        "key_planes", seqs, None, lengths, seqs.shape[1], k, False, normalized
     )
 
 
@@ -366,8 +394,8 @@ def canonical_key_planes_packed(
     _check_packed(codes, vbits, lengths)
     if not _on_cuda(codes, vbits, lengths):
         return canonical_key_planes_packed_plain(codes, vbits, lengths, k)
-    return _launch_key_planes(
-        codes, vbits, lengths, codes.shape[1] * 4, k, True, True
+    return _launch_two_planes(
+        "key_planes", codes, vbits, lengths, codes.shape[1] * 4, k, True, True
     )
 
 
@@ -605,3 +633,126 @@ def mxu_compact_slots(
         LAUNCHES["compact_slots"] += 1
     hi_c = None if hi is None else out[0]
     return hi_c, out[-2], out[-1], overflow[0] == 0
+
+
+# ---------------------------------------------------------------------------
+# hash-tally planes
+# ---------------------------------------------------------------------------
+
+
+def _check_block_rows(block_rows: Optional[int], rows: int) -> None:
+    """JAX's only use of an explicit ``block_rows`` that the port keeps:
+    it must divide the batch rows (the CUDA kernel has no row blocks)."""
+    if block_rows is not None and (block_rows <= 0 or rows % block_rows):
+        raise ValueError(f"batch rows {rows} not a multiple of {block_rows}")
+
+
+def canonical_hash_tally_plain(
+    seqs: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    table_bits: int = 20,
+    normalized: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`canonical_hash_tally`."""
+    _check_k(k, table_bits)
+    canon, valid, use_rc = _canonical_from_codes(
+        encode_2bit(seqs, normalized), lengths, k
+    )
+    idx = torch.where(valid, _hash(canon, table_bits), 0).to(torch.int32)
+    return idx, valid.to(torch.int32), valid.sum(), (valid & ~use_rc).sum()
+
+
+def canonical_hash_tally(
+    seqs: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    table_bits: int = 20,
+    normalized: bool = True,
+    block_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Canonical k-mer hash indices and weights of an ASCII read plane.
+
+    ``seqs`` uint8 ``[B, L]``, ``lengths`` int32 ``[B]``.  Returns ``(idx,
+    weight, total, fwd)``: int32 ``[B, L]`` planes, ``idx`` the hash of
+    the window starting at lane p where it is valid and 0 where not,
+    ``weight`` 1 where it is valid and 0 where not, and the int64 tallies
+    of :func:`canonical_hash_keys`.  ``mxu_histogram16(idx, weight)``
+    counts them.  ``block_rows``, JAX's VMEM tiling, only has to divide
+    the rows when given.  Equals JAX's ``canonical_hash_tally``.
+    """
+    _check_k(k, table_bits)
+    _check_ascii(seqs, lengths)
+    _check_block_rows(block_rows, seqs.shape[0])
+    if not _on_cuda(seqs, lengths):
+        return canonical_hash_tally_plain(
+            seqs, lengths, k, table_bits, normalized
+        )
+    return _launch_two_planes(
+        "hash_tally", seqs, None, lengths, seqs.shape[1], k, False,
+        normalized, table_bits,
+    )
+
+
+# ---------------------------------------------------------------------------
+# bitonic block sort
+# ---------------------------------------------------------------------------
+
+_INT32_SIGN = -(1 << 31)
+
+
+def _check_block_sort(x: torch.Tensor, block_lanes: int) -> None:
+    _check_plane("x", x, torch.int32, 1)
+    if block_lanes < 128 or block_lanes & (block_lanes - 1):
+        raise ValueError(
+            f"block_lanes must be a power of two >= 128, got {block_lanes}"
+        )
+    if x.numel() % block_lanes:
+        raise ValueError(
+            f"{x.numel()} lanes are not a multiple of block_lanes "
+            f"{block_lanes}"
+        )
+
+
+def block_sort_plain(x: torch.Tensor, block_lanes: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bitonic_block_sort`: the sign bit
+    flipped (unsigned order as signed), a row sort, the bit flipped back."""
+    _check_block_sort(x, block_lanes)
+    rows = (x ^ _INT32_SIGN).view(-1, block_lanes)
+    return (torch.sort(rows, dim=1).values ^ _INT32_SIGN).reshape(-1)
+
+
+def _block_sort_lib() -> ctypes.CDLL:
+    lib = _build.load("block_sort")
+    fn = lib.nt_block_sort
+    if fn.argtypes is None:
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, p, ll, ll, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def bitonic_block_sort(x: torch.Tensor, block_lanes: int) -> torch.Tensor:
+    """Sort each consecutive ``block_lanes`` span of ``x`` ascending, as
+    unsigned 32-bit keys, into a new tensor.
+
+    ``x`` is an int32 ``[N]`` tensor of uint32 bit patterns; ``block_lanes``
+    a power of two >= 128 that divides N (JAX's experiment fails only at
+    its reshape, or sorts wrongly, otherwise; here they raise
+    ``ValueError``).  Equals JAX's ``bitonic_block_sort`` bit for bit.
+    """
+    _check_block_sort(x, block_lanes)
+    if not _on_cuda(x):
+        return block_sort_plain(x, block_lanes)
+    _check_contiguous(x=x)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    fn = _block_sort_lib().nt_block_sort
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), block_lanes, stream)
+    if err != 0:
+        raise RuntimeError(f"block_sort kernel launch failed: CUDA error {err}")
+    LAUNCHES["block_sort"] += 1
+    return out

@@ -1,6 +1,6 @@
 """File-level drivers of the port.
 
-Counterpart of ``needletail_tpu/device/pipeline.py``.  Two paths so far:
+Counterpart of ``needletail_tpu/device/pipeline.py``.  Three paths so far:
 
   * the hash count, :func:`hash_count_file`: FASTX file -> host framer ->
     one-buffer wire -> device ``unwire`` -> canonical k-mer hash keys ->
@@ -9,7 +9,10 @@ Counterpart of ``needletail_tpu/device/pipeline.py``.  Two paths so far:
     dense ``4^k`` table (k <= 9, histogram kernel) or canonical key planes
     buffered on the device, sorted and run-length counted per flush and
     compacted by the slot-compaction cascade (k >= 10; densified at the
-    end for k <= 12).
+    end for k <= 12);
+  * several k values in one pass, :func:`multi_k_count_file`: each k
+    routed as :func:`count_file` routes it, one unpack per batch shared
+    by every k that builds windows.
 
 The device steps are plain functions on tensors; PyTorch runs them
 eagerly, so there is no per-configuration compile to cache.
@@ -30,11 +33,13 @@ from ..encoding import ENCODE_RAW_LUT
 from . import count as _count
 from . import kernels as _kernels
 from . import kmers as _kmers
-from .ops import _compose_le, resolve_vbits, unpack_codes, unwire
+from .ops import _compose_le, encode_2bit, resolve_vbits, unpack_codes, unwire
 
 __all__ = [
     "hash_count_file",
     "count_file",
+    "multi_k_count_file",
+    "multi_k_tally",
     "canonical_dense_count",
     "canonical_match_count",
     "base_count",
@@ -396,14 +401,42 @@ def base_count(lengths: torch.Tensor) -> torch.Tensor:
     return lengths.to(torch.int64).sum()
 
 
+def _planes_keys(
+    k: int, data, lengths, vbits, packed: bool, normalized: bool,
+    width: Optional[int] = None,
+):
+    """Flat (hi | None, lo) key planes of the window starts ``[0, width)``
+    (default: every start, ``L - k + 1``) from the key-plane kernel; hi is
+    dropped for k <= 15, whose keys fit lo."""
+    if packed:
+        khi, klo, _, _ = _kernels.canonical_key_planes_packed(
+            data, vbits, lengths, k
+        )
+    else:
+        khi, klo, _, _ = _kernels.canonical_key_planes(
+            data, lengths, k, normalized
+        )
+    # later lanes hold sentinels anyway, and dropping them shrinks the sort
+    w = khi.shape[1] - k + 1
+    if width is not None:
+        w = min(width, w)
+    hi = None if k <= 15 else khi[:, :w].reshape(-1)
+    return hi, klo[:, :w].reshape(-1)
+
+
+def _window_keys(windows: _kmers.KmerWindows, k: int):
+    """Flat masked (hi | None, lo) key planes of :mod:`kmers` windows."""
+    hi, lo = _count.mask_keys(windows)
+    return (None if k <= 15 else hi), lo
+
+
 def _count_step_fns(k: int, packed: bool, canonical: bool, normalized: bool,
                     on_cuda: bool):
     """``(spectrum, keys)`` steps of :func:`count_file` over one placed
     batch ``(data, lengths, vbits)``: the int32 dense spectrum, or the
-    flat masked (hi | None, lo) key planes (hi dropped for k <= 15, whose
-    keys fit lo).  Keys come from the key-plane kernel for canonical
-    counts on the card, from :mod:`kmers` otherwise, as JAX routes them."""
-    narrow = k <= 15
+    flat masked (hi | None, lo) key planes.  Keys come from the key-plane
+    kernel for canonical counts on the card, from :mod:`kmers` otherwise,
+    as JAX routes them."""
     make_windows = _windows_fn(canonical)
 
     def windows(data, lengths, vbits):
@@ -417,21 +450,8 @@ def _count_step_fns(k: int, packed: bool, canonical: bool, normalized: bool,
 
     def keys(data, lengths, vbits):
         if canonical and on_cuda:
-            if packed:
-                khi, klo, _, _ = _kernels.canonical_key_planes_packed(
-                    data, vbits, lengths, k
-                )
-            else:
-                khi, klo, _, _ = _kernels.canonical_key_planes(
-                    data, lengths, k, normalized
-                )
-            # windows start only at lanes [0, L-k+1); later lanes are
-            # sentinel anyway, and dropping them shrinks the sort
-            w = khi.shape[1] - k + 1
-            hi = None if narrow else khi[:, :w].reshape(-1)
-            return hi, klo[:, :w].reshape(-1)
-        hi, lo = _count.mask_keys(windows(data, lengths, vbits))
-        return (None if narrow else hi), lo
+            return _planes_keys(k, data, lengths, vbits, packed, normalized)
+        return _window_keys(windows(data, lengths, vbits), k)
 
     return spectrum, keys
 
@@ -477,13 +497,26 @@ def count_file(
     checkpoints are of kind ``count_dense`` (k <= 9) or ``count_sparse``,
     the same files JAX's ``count_file`` writes and resumes.
 
-    ``bucketed``, ``quality_cutoff`` and a tuple ``k`` are not ported yet
-    and raise ``NotImplementedError``.
+    A tuple of k values counts them all in one pass through
+    :func:`multi_k_count_file` (``bucketed`` and ``dense`` then raise
+    ``ValueError``, as in JAX).  ``bucketed`` and ``quality_cutoff`` are
+    not ported yet and raise ``NotImplementedError``.
     """
     if isinstance(k, (tuple, list, set, frozenset)):
-        raise NotImplementedError(
-            "multi-k counting comes with the 'Multi-k' item of ROADMAP.md; "
-            "call count_file once per k"
+        if bucketed or dense is not None:
+            raise ValueError(
+                "multi-k counting does not take bucketed/dense; call "
+                "multi_k_count_file directly for full control"
+            )
+        return multi_k_count_file(
+            path, k, canonical=canonical, normalized=normalized,
+            batch_size=batch_size, max_len=max_len,
+            sparse_format=sparse_format, quality_cutoff=quality_cutoff,
+            phred_offset=phred_offset, host_workers=host_workers,
+            spill_dir=spill_dir, packed=packed,
+            checkpoint_every=checkpoint_every,
+            checkpoint_path=checkpoint_path, resume_from=resume_from,
+            meter=meter, double_buffer=double_buffer, device=device,
         )
     if bucketed:
         raise NotImplementedError(
@@ -621,6 +654,245 @@ def count_file(
         meter.add("drain", now - t_drain)
         meter.add("wall", now - t_wall0, items=n_bases)
     return n_bases, result
+
+
+# ---------------------------------------------------------------------------
+# several k values in one pass
+# ---------------------------------------------------------------------------
+
+
+def multi_k_tally(
+    seqs: torch.Tensor,
+    lengths: torch.Tensor,
+    ks,
+    canonical: bool = True,
+    normalized: bool = True,
+) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
+    """``{k: (total valid windows, forward windows)}`` of one ASCII batch
+    for every k in ``ks``, encoded once."""
+    codes = encode_2bit(seqs, normalized)
+    make_windows = _windows_fn(canonical)
+    out = {}
+    for k in tuple(ks):
+        win = make_windows(codes, lengths, k, precoded=True)
+        out[k] = (_count.valid_count(win), _count.forward_count(win))
+    return out
+
+
+def multi_k_count_file(
+    path,
+    ks,
+    canonical: bool = True,
+    normalized: bool = True,
+    batch_size: int = 512,
+    max_len: Optional[int] = None,
+    sparse_format: str = "arrays",
+    quality_cutoff: Optional[int] = None,
+    phred_offset: int = 33,
+    host_workers: Optional[int] = None,
+    spill_dir: Optional[str] = None,
+    packed: Optional[bool] = None,
+    checkpoint_every: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    resume_from: Optional[str] = None,
+    meter=None,
+    double_buffer: bool = True,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[int, Dict[int, Union[np.ndarray, Dict[int, int], Tuple[np.ndarray, np.ndarray]]]]:
+    """Count several k values in one pass over a FASTX file (canonical
+    4..31-mer counting).
+
+    Returns ``(n_bases, {k: spectrum})``, the values JAX's
+    ``multi_k_count_file`` returns: each k's spectrum is what
+    :func:`count_file` returns for it, dense int64 ``[4^k]`` for k <= 12,
+    else ``(keys uint64, counts int64)`` arrays (a dict with
+    ``sparse_format="dict"``).  Each k is routed as :func:`count_file`
+    routes it: k <= 9 dense per batch (the histogram kernel on CUDA),
+    10..12 sparse and densified at the end, above that sparse (the
+    key-plane kernel on CUDA for canonical counts).  A batch is framed,
+    shipped and unwired once, and unpacked at most once for every k that
+    builds windows; k values longer than a batch's reads skip it.
+
+    ``checkpoint_every``/``checkpoint_path``/``resume_from`` write and
+    resume checkpoints of kind ``multik`` (``dense_{k}`` tables and
+    ``keys_{k}``/``counts_{k}`` pairs), the files JAX's flat and sharded
+    multi-k drivers write; a ``sharded_multik`` file resumes too.
+    ``meter``, ``double_buffer``, ``host_workers``, ``spill_dir`` and
+    ``device`` act as in :func:`count_file`.  ``quality_cutoff`` is not
+    ported yet and raises ``NotImplementedError``.
+    """
+    ks = tuple(sorted({int(k) for k in ks}))
+    if not ks:
+        raise ValueError("ks must be non-empty")
+    for k in ks:
+        if not 1 <= k <= 31:
+            raise ValueError(f"every k must be in [1, 31], got {k}")
+    if quality_cutoff is not None:
+        raise NotImplementedError(
+            "quality masking comes with the 'Quality' item of ROADMAP.md"
+        )
+    if packed is None:
+        packed = True
+    dev = _resolve_device(device)
+    on_cuda = dev.type == "cuda"
+
+    from ..checkpoint import (
+        counting_meta,
+        prepare_checkpoint_stream,
+        save_stream_checkpoint,
+    )
+
+    dense_ks = tuple(k for k in ks if k <= _count.MAX_DENSE_K)
+    sparse_ks = tuple(k for k in ks if k > _count.MAX_DENSE_K)
+    mxu_dense_ks = tuple(k for k in dense_ks if k <= _count.MXU_DENSE_K)
+    densify_ks = tuple(k for k in dense_ks if k > _count.MXU_DENSE_K)
+    acc_sparse_ks = densify_ks + sparse_ks
+    make_windows = _windows_fn(canonical)
+
+    tables = {
+        k: torch.zeros(4**k, dtype=torch.int64, device=dev)
+        for k in mxu_dense_ks
+    }
+    sparse_accs = {k: _count.SparseSpectrumAccumulator() for k in acc_sparse_ks}
+    n_bases = 0
+
+    def _check_ks(ck):
+        ck_ks = tuple(int(x) for x in ck["meta"].get("ks", ()))
+        if ck_ks != ks:
+            raise ValueError(
+                f"checkpoint {resume_from!r} is a multi-k run with "
+                f"ks={ck_ks}, expected ks={ks}"
+            )
+
+    sem = dict(
+        canonical=canonical, normalized=normalized,
+        quality_cutoff=quality_cutoff, phred_offset=phred_offset,
+    )
+    ckpt_mode, ck = prepare_checkpoint_stream(
+        ("multik", "sharded_multik"),
+        checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path,
+        resume_from=resume_from, host_workers=host_workers,
+        validate=_check_ks, **sem,
+    )
+    start_offset = 0
+    if ck is not None:
+        start_offset = ck["file_offset"]
+        n_bases = ck["n_bases"]
+        arrays = ck["arrays"]
+        for k in mxu_dense_ks:
+            tables[k].copy_(torch.from_numpy(
+                np.asarray(arrays[f"dense_{k}"], dtype=np.int64)
+            ))
+        for k in acc_sparse_ks:
+            if f"keys_{k}" not in arrays and f"dense_{k}" in arrays:
+                # written while this k rode a dense table (the sharded
+                # driver's schema): back to sorted sparse pairs
+                t = np.asarray(arrays[f"dense_{k}"]).astype(np.int64)
+                nz = np.flatnonzero(t)
+                sparse_accs[k].restore(nz.astype(np.uint64), t[nz])
+            else:
+                sparse_accs[k].restore(
+                    arrays[f"keys_{k}"], arrays[f"counts_{k}"]
+                )
+
+    def _save_checkpoint(offset):
+        arrays = {}
+        for k in mxu_dense_ks:
+            arrays[f"dense_{k}"] = tables[k].cpu().numpy()
+        for k in acc_sparse_ks:
+            # finish() flushes (one sort per k) and leaves the accumulator live
+            keys, counts = sparse_accs[k].finish()
+            arrays[f"keys_{k}"] = keys
+            arrays[f"counts_{k}"] = counts
+        save_stream_checkpoint(
+            checkpoint_path, "multik", 0, offset, n_bases, arrays,
+            input_path=str(path),
+            meta={"ks": np.asarray(ks, np.int32), **counting_meta(**sem)},
+        )
+
+    t_wall0 = _time.perf_counter()
+    batches = _batch_source(
+        path, batch_size, max_len, host_workers, spill_dir, packed,
+        normalized, ckpt_mode, start_offset, checkpoint_every,
+    )
+    to_device = _uploader(dev)
+
+    def _place(batch):
+        """``(num_bases, payload, (layout, active ks), file_offset)``;
+        payload None when no k fits the batch's reads."""
+        active = tuple(k for k in ks if k <= batch.max_len)
+        if not active:
+            return batch.num_bases, None, None, batch.file_offset
+        if packed:
+            buf, layout = batch.wire_frame(batch.num_reads)
+            payload = to_device(buf)
+        else:
+            layout = None
+            payload = (
+                to_device(batch.seqs),
+                to_device(batch.lengths.astype(np.int32, copy=False)),
+            )
+        return batch.num_bases, payload, (layout, active), batch.file_offset
+
+    def _step(data, lengths, vbits, active):
+        seqs = None
+        for k in active:
+            if k not in tables and canonical and on_cuda:
+                sparse_accs[k].add(*_planes_keys(
+                    k, data, lengths, vbits, packed, normalized
+                ))
+                continue
+            if seqs is None:
+                # one unpack per batch, shared by every k
+                seqs = unpack_codes(data, vbits) if packed else data
+            win = make_windows(
+                seqs, lengths, k, normalized=normalized, precoded=packed
+            )
+            if k in tables:
+                tables[k] += _count.dense_spectrum(win, k)
+            else:
+                sparse_accs[k].add(*_window_keys(win, k))
+
+    placed = _placed_stream(
+        batches, _place, dev, packed, meter, double_buffer, checkpoint_every,
+        _save_checkpoint,
+    )
+    for nb, payload, aux, _offset in placed:
+        n_bases += nb
+        if payload is None:
+            continue
+        t0 = _time.perf_counter() if meter is not None else 0.0
+        layout, active = aux
+        if packed:
+            codes, lengths, vbits, vrow_idx, vrows = unwire(payload, layout)
+            vbits = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
+            _step(codes, lengths, vbits, active)
+        else:
+            _step(payload[0], payload[1], None, active)
+        if meter is not None:
+            meter.add("dispatch", _time.perf_counter() - t0, items=nb)
+
+    t_drain = _time.perf_counter()
+    out: Dict[int, object] = {}
+    for k in mxu_dense_ks:
+        out[k] = tables[k].cpu().numpy()
+    for k in densify_ks:
+        keys, counts = sparse_accs[k].finish()
+        table = np.zeros(4**k, np.int64)
+        table[keys.astype(np.int64)] = counts
+        out[k] = table
+    for k in sparse_ks:
+        keys, counts = sparse_accs[k].finish()
+        out[k] = (
+            _count.spectrum_arrays_to_dict(keys, counts)
+            if sparse_format == "dict"
+            else (keys, counts)
+        )
+    if meter is not None:
+        now = _time.perf_counter()
+        meter.add("drain", now - t_drain)
+        meter.add("wall", now - t_wall0, items=n_bases)
+    return n_bases, out
 
 
 def readme_pipeline(

@@ -1,5 +1,6 @@
-"""Seeded synthetic read planes for holding kernels against their plain
-versions (the tests and ``chip_smoke.py`` use them).
+"""Seeded synthetic inputs: read planes for holding kernels against their
+plain versions (the tests and ``chip_smoke.py`` use them), and the
+whole-genome FASTA of the genome-spectrum path.
 
 Every input comes from a numpy ``Generator``, so the JAX package, the
 port's plain versions and its CUDA kernels all see the same bytes.
@@ -12,7 +13,9 @@ import numpy as np
 from ..batch import PackedReadBatch
 from ..encoding import pack_codes_host_rows
 
-__all__ = ["CLEAN", "DIRTY", "random_reads", "packed_batch"]
+__all__ = [
+    "CLEAN", "DIRTY", "random_reads", "packed_batch", "synthetic_genome",
+]
 
 # case-folded bases only: every in-length byte encodes
 CLEAN = b"ACGTacgt"
@@ -72,3 +75,25 @@ def packed_batch(
     return PackedReadBatch(
         codes=codes, lengths=lengths, vbits=vbits, normalized=normalized
     )
+
+
+def synthetic_genome(
+    n_bases: int, seed: int = 31, line_width: int = 80, name: str = "synth"
+) -> bytes:
+    """A uniform-ACGT FASTA genome as one record wrapped at ``line_width``:
+    the same bytes as the JAX package's ``synthetic_genome`` for the same
+    arguments (``default_rng(seed)`` fixes the stream)."""
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 4, n_bases, dtype=np.uint8)
+    seq = np.frombuffer(b"ACGT", dtype=np.uint8)[bases]
+    full, rem = divmod(n_bases, line_width)
+    body = np.full(
+        (full + (1 if rem else 0), line_width + 1), ord("\n"), np.uint8
+    )
+    body[:full, :line_width] = seq[: full * line_width].reshape(full, line_width)
+    if rem:
+        body[full, :rem] = seq[full * line_width :]
+        body = body[:full].tobytes() + body[full, : rem + 1].tobytes()
+    else:
+        body = body.tobytes()
+    return b">" + name.encode() + b" synthetic uniform genome\n" + body

@@ -164,8 +164,8 @@ def test_not_ported_options_raise():
     for kw in (dict(quality_cutoff=20), dict(bucketed=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe.count_file(FQ, 21, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="Multi-k"):
-        tpipe.count_file(FQ, (4, 21), device="cpu")
+    with pytest.raises(ValueError, match="bucketed/dense"):
+        tpipe.count_file(FQ, (4, 21), bucketed=True, device="cpu")
     with pytest.raises(ValueError, match="dense output"):
         tpipe.count_file(FQ, 21, dense=True, device="cpu")
 

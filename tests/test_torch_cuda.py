@@ -174,3 +174,96 @@ def test_cuda_count_file_matches_plain(cuda_device, tmp_path):
     np.testing.assert_array_equal(got[1][0], want[1][0])
     np.testing.assert_array_equal(got[1][1], 8 * want[1][1])
     assert int(got[1][1].sum()) == 8 * GOLD[1]
+
+
+def test_cuda_hash_tally_matches_plain(cuda_device):
+    """The tally mode of the window kernel, at a width that is no multiple
+    of the block and one beyond the TPU kernel's VMEM limit."""
+    rng = np.random.default_rng(60)
+    for rows, width in ((256, 152), (16, 40_000)):
+        seqs, lengths = random_reads(rng, rows, width, dirty_frac=0.5)
+        s = torch.from_numpy(seqs).to(cuda_device)
+        ln = torch.from_numpy(lengths).to(cuda_device)
+        for k in KS:
+            for normalized in (True, False):
+                got = tk.canonical_hash_tally(s, ln, k, 16, normalized)
+                want = tk.canonical_hash_tally_plain(s, ln, k, 16, normalized)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+                # the weighted histogram counts what the keys route counts
+                keys = tk.canonical_hash_keys(s, ln, k, 16, normalized)[0]
+                assert torch.equal(
+                    tk.mxu_histogram16(got[0], got[1]),
+                    tk.mxu_histogram16(keys),
+                )
+
+
+@pytest.mark.parametrize("block", [128, 1024, 1 << 14, 1 << 15, 1 << 16, 1 << 17])
+def test_cuda_block_sort_matches_plain(cuda_device, block):
+    """Spans that fit one CTA's shared memory (up to 2^15 lanes) and spans
+    that also take passes over device memory; random keys, keys with the
+    top bit set, and all-equal keys."""
+    rng = np.random.default_rng(block)
+    keys = rng.integers(0, 1 << 32, 1 << 18, dtype=np.uint32)
+    for plane in (keys, keys | np.uint32(1 << 31), np.full_like(keys, 7)):
+        x = torch.from_numpy(plane.view(np.int32)).to(cuda_device)
+        got = tk.bitonic_block_sort(x, block)
+        assert torch.equal(got, tk.block_sort_plain(x, block))
+        want = np.sort(plane.reshape(-1, block), axis=1).reshape(-1)
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want)
+
+
+def test_cuda_genome_spectrum_matches_plain(cuda_device, tmp_path):
+    """``genome_spectrum`` through the key-plane kernel (packed and ASCII
+    tiles, arrays and the device flush) and k=7 dense through the
+    histogram kernel, on a genome with ambiguous bases."""
+    from needletail_tpu_torch.device.tiling import genome_spectrum
+
+    rng = np.random.default_rng(61)
+    genome = rng.choice(np.frombuffer(b"ACGTN", np.uint8), 60_000,
+                        p=[0.24, 0.24, 0.24, 0.24, 0.04]).tobytes()
+    fa = tmp_path / "g.fa"
+    fa.write_bytes(b">g\n" + genome + b"\n")
+    kw = dict(tile_len=2048, batch_tiles=8)
+    for packed in (True, False):
+        tk.reset_launches()
+        got = genome_spectrum(str(fa), 31, sparse_format="arrays",
+                              packed=packed, device="cuda", **kw)
+        assert tk.LAUNCHES["key_planes"] > 0
+        want = genome_spectrum(str(fa), 31, sparse_format="arrays",
+                               packed=packed, device="cpu", **kw)
+        assert got[0] == want[0] == 60_000
+        for a, b in zip(got[1], want[1]):
+            np.testing.assert_array_equal(a, b)
+    n, (hi_s, lo_s, counts) = genome_spectrum(
+        str(fa), 31, sparse_format="device", device="cuda", **kw
+    )
+    assert counts.is_cuda and int((counts > 0).sum()) == len(want[1][0])
+    tk.reset_launches()
+    got = genome_spectrum(str(fa), 7, device="cuda", **kw)
+    assert tk.LAUNCHES["histogram16"] > 0
+    np.testing.assert_array_equal(
+        got[1], genome_spectrum(str(fa), 7, device="cpu", **kw)[1]
+    )
+
+
+def test_cuda_multi_k_matches_plain(cuda_device, tmp_path):
+    """``multi_k_count_file`` over the corpus written 8 times (so the
+    cascade holds), k=4 dense through the histogram kernel and k=21, 31
+    through the key-plane kernel."""
+    from pathlib import Path
+
+    from needletail_tpu_torch.device.pipeline import multi_k_count_file
+
+    copies = tmp_path / "x8.fq"
+    copies.write_bytes(Path(FQ).read_bytes() * 8)
+    kw = dict(batch_size=4096, max_len=128, host_workers=1)
+    tk.reset_launches()
+    got = multi_k_count_file(str(copies), (4, 21, 31), device="cuda", **kw)
+    assert tk.LAUNCHES["histogram16"] > 0 and tk.LAUNCHES["key_planes"] > 0
+    want = multi_k_count_file(FQ, (4, 21, 31), device="cpu", **kw)
+    assert got[0] == 8 * want[0]
+    np.testing.assert_array_equal(got[1][4], 8 * want[1][4])
+    for k in (21, 31):
+        np.testing.assert_array_equal(got[1][k][0], want[1][k][0])
+        np.testing.assert_array_equal(got[1][k][1], 8 * want[1][k][1])

@@ -4,7 +4,8 @@ exactly as the JAX package does.
 A subprocess refuses every import of ``needletail_tpu`` (and of JAX) through
 a ``sys.meta_path`` finder installed by ``sitecustomize``, so spawned
 framing workers refuse them too; in it the port imports every module,
-imports ``chip_smoke`` and runs both drivers on the CPU.  The port's copies
+imports ``chip_smoke`` and runs the hash, exact, multi-k and genome
+drivers on the CPU.  The port's copies
 of the framers, batches and codecs then produce the JAX package's batches,
 field for field, over every fixture.
 """
@@ -70,6 +71,24 @@ n, (keys, counts) = count_file(fq, 21, batch_size=512, max_len=128,
                                device="cpu", host_workers=2,
                                sparse_format="arrays")
 assert (n, int(counts.sum())) == (250000, 209965), (n, counts.sum())
+
+import os
+import tempfile
+
+from needletail_tpu_torch.device.pipeline import multi_k_count_file
+from needletail_tpu_torch.device.tiling import genome_spectrum
+from needletail_tpu_torch.utils.synth import synthetic_genome
+
+n, spec = multi_k_count_file(fq, (4, 21), batch_size=512, max_len=128,
+                             device="cpu", host_workers=2)
+assert (n, int(spec[4].sum()), int(spec[21][1].sum())) == (
+    250000, 243982, 209965), (n, spec[4].sum(), spec[21][1].sum())
+fa = os.path.join(tempfile.mkdtemp(), "genome.fa")
+with open(fa, "wb") as f:
+    f.write(synthetic_genome(20000, seed=1))
+n, (keys, counts) = genome_spectrum(fa, 31, tile_len=1024, device="cpu",
+                                    sparse_format="arrays")
+assert (n, int(counts.sum())) == (20000, 20000 - 30), (n, counts.sum())
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("needletail_tpu", "jax", "jaxlib"))
 assert not leaked, leaked
