@@ -12,11 +12,13 @@ Phases, each fatal on failure:
 2. hold each kernel against its plain PyTorch version on the card, bit for
    bit (tolerance 0: the path is all integer): hash keys, key planes and
    hash-tally planes over k, ASCII (and for the first two packed) input,
-   the three wire validity shapes and several read widths; the histogram
-   on uniform, skewed and mostly-invalid keys; slot compaction over wide
-   and narrow sorted runs, random flags, an overflowing chunk and ragged
-   lengths; the block sort at spans from 128 to 2^17 lanes on random,
-   top-bit, all-equal, sorted and reversed keys;
+   the three wire validity shapes (a validity plane at an odd byte
+   offset) and read widths whose pitch is no multiple of 8 bytes; the
+   histogram on uniform, skewed and mostly-invalid keys; slot compaction
+   over wide and narrow sorted runs, random flags, an overflowing chunk
+   and ragged lengths; the block sort at spans from 128 to 2^20 lanes on
+   random, top-bit, all-equal, few-distinct, sorted and reversed keys,
+   its input unchanged;
 3. the hash path at full size: ``hash_count_file`` over the golden FASTQ
    written 256 times (64M bases) at batch 131072 x 128, through both of
    its kernels (launch counts read around this run), to the x256 goldens
@@ -52,8 +54,10 @@ Phases, each fatal on failure:
    ``torch.sort``; these are the block sort's times in the kernels line;
 11. each other kernel's time beside its plain version's, its bound and,
    where one PyTorch call computes the same function, that call's, at the
-   main paths' shapes, and the times of the flush's sort and of its whole run
-   count (``unique_counts``: the sort, run heads and lengths);
+   main paths' shapes (CUDA events around calls queued behind a spin, so
+   the card's time and not the host's), and the times of the flush's sort
+   and of its whole run count (``unique_counts``: the sort, run heads and
+   lengths);
 12. stop every process the run started (the framing pool's resource
    tracker) and fail if a child is still alive; then a
    ``{"kernels": [...]}`` line and the last line
@@ -94,17 +98,20 @@ SEED = 20261016
 DISTINCT_READS = 16_384  # random 128-base reads: ~1.6M distinct 31-mers
 
 HASH_KS = (1, 16, 17, 21, 31)
-ASCII_WIDTHS = {128: 512, 150: 512, 40_000: 16}  # width -> rows
+# width -> rows; ASCII pitches that are no multiple of 4 (150, 156) or of
+# 16 (152), and rows wider than one 128-lane segment of the window kernel
+ASCII_WIDTHS = {128: 512, 150: 512, 152: 512, 156: 512, 40_000: 16}
 PACKED_WIDTHS = {128: 512, 152: 512, 40_000: 16}  # packed widths are x8
 HIST_KEYS = BATCH * MAX_LEN  # 16.7M keys, one main-path batch
 # compaction cases: (lanes, share of flagged lanes); 8192 lanes is the
 # kernel's padding unit, and none of these is a multiple of it
 COMPACT_CASES = ((100, 0.5), (1_000_003, 0.1), (3_000_001, 0.02))
-# block sort checks: every span of the experiment and the tile edges
-# (2^15 lanes fill one CTA's shared memory; 2^16 and 2^17 also run
-# passes over device memory)
-SORT_CHECK_BLOCKS = (128, 1024, 1 << 14, 1 << 15, 1 << 16, 1 << 17)
-SORT_CHECK_LANES = 1 << 19
+# block sort checks: every power-of-two span from 128 to 2^20 lanes, so
+# every span of the experiment, the tile edge (8,192 lanes fill one CTA;
+# every larger span adds a merge pass over device memory) and spans of up
+# to 7 merge passes
+SORT_CHECK_BLOCKS = tuple(1 << b for b in range(7, 21))
+SORT_CHECK_LANES = 1 << 21
 
 # the genome path: bench.py's whole-bacterium k=31 spectrum and goldens
 GENOME_BASES = 5_000_000
@@ -176,7 +183,9 @@ def check_window_kernels(errors: Errors, rng) -> int:
 
     from needletail_tpu_torch.device import kernels as K_
     from needletail_tpu_torch.device.ops import resolve_vbits, unwire
-    from needletail_tpu_torch.utils.synth import packed_batch, random_reads
+    from needletail_tpu_torch.utils.synth import (
+        odd_offset_view, packed_batch, packed_rows, random_reads,
+    )
 
     dev = torch.device("cuda")
     hash_parts = ("keys", "total", "fwd")
@@ -218,6 +227,8 @@ def check_window_kernels(errors: Errors, rng) -> int:
             wire = torch.from_numpy(buf).to(dev)
             codes, ln, vbits, vrow_idx, vrows = unwire(wire, layout)
             vb = resolve_vbits(vbits, vrow_idx, vrows, rows)
+            if vb is not None:
+                vb = odd_offset_view(vb)
             for k in HASH_KS:
                 what = f"packed vmode={vmode} L={width} k={k}"
                 errors.hold_all(
@@ -233,6 +244,25 @@ def check_window_kernels(errors: Errors, rng) -> int:
                     plane_parts,
                 )
                 cases += 1
+    # clean packed rows of 156 bases: a 39-byte pitch
+    codes, _, lengths = packed_rows(rng, 512, 156)
+    codes = torch.from_numpy(codes).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    for k in HASH_KS:
+        what = f"packed clean L=156 k={k}"
+        errors.hold_all(
+            "hash_keys", what,
+            K_.canonical_hash_keys_packed(codes, None, ln, k, 16),
+            K_.canonical_hash_keys_packed_plain(codes, None, ln, k, 16),
+            hash_parts,
+        )
+        errors.hold_all(
+            "key_planes", what,
+            K_.canonical_key_planes_packed(codes, None, ln, k),
+            K_.canonical_key_planes_packed_plain(codes, None, ln, k),
+            plane_parts,
+        )
+        cases += 1
     torch.cuda.synchronize()
     return cases
 
@@ -345,18 +375,22 @@ def check_block_sort(errors: Errors, rng) -> int:
         "random": rand,
         "top bit set": rand | np.uint32(0x80000000),
         "all equal": np.full(n, 0x9E3779B1, np.uint32),
+        "few distinct": rand % np.uint32(61) * np.uint32(0x04000001),
         "sorted": np.sort(rand),
         "reversed": np.sort(rand)[::-1].copy(),
     }
     cases = 0
     for what, keys in inputs.items():
         x = torch.from_numpy(keys.view(np.int32)).to("cuda")
+        before = x.clone()
         for bl in SORT_CHECK_BLOCKS:
             errors.hold(
                 "block_sort", f"{what} blocks={bl}",
                 K_.bitonic_block_sort(x, bl), K_.block_sort_plain(x, bl),
             )
             cases += 1
+        if not torch.equal(x, before):
+            raise AssertionError(f"block_sort wrote its input ({what})")
     torch.cuda.synchronize()
     return cases
 
@@ -1254,7 +1288,8 @@ def run() -> int:
     log(f"build: {len(logs)} kernel source(s) compiled in {build_s:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "stack frame")):
                 log(f"  {name}: {line.strip()}")
 
     # ---- 2. each kernel against its plain version ---------------------

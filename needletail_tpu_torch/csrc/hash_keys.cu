@@ -9,7 +9,7 @@
 //
 //   code      A0 C1 G2 T3 (ASCII: case-folded with & 0xDF, U counts as T
 //             only when `normalized`); anything else is invalid
-//   valid     all k codes are bases and p + k <= length[row]
+//   valid     all k codes are bases and p + k <= min(length[row], L)
 //   canonical integer min of the forward window (first base most
 //             significant) and its reverse complement; a tie keeps forward
 //   hi, lo    canonical >> 32 and its low 32 bits (for k <= 16, hi = 0)
@@ -27,42 +27,94 @@
 // from the forward strand), added to two 64-bit counters.  The planes
 // are what the Pallas planes kernel writes before its bitcast to uint32.
 //
-// What bounds it on Hopper: the planes it writes (4 or 8 bytes a lane)
-// and the per-lane window build (k shared-memory reads and shifts); the
-// tally mode writes 8 bytes a lane, twice the keys mode, for the same
-// information, as the TPU kernel's scatter-add interface asked.  The TPU
-// kernel built windows with doubling ladders of rolled planes because a
-// TPU lane has no 64-bit integers; here one thread holds a whole k <= 31
-// window in a uint64_t.  Each block stages one tile of codes (plus the
-// k - 1 lanes that the tile's last windows reach into) in shared memory,
-// decoding ASCII or unpacking the 2-bit transport on that load, so the
-// unpack that XLA ran as a separate pass on the TPU is fused here.  Lanes
-// are numbered across the flattened [rows, L] plane, so a short read
-// length wastes no threads; a window that crosses a row end always fails
-// the length test.  Blocks walk tiles in a grid-stride loop and keep
-// their tallies in registers, so each block issues two global atomics in
-// all.  No limit on L: the TPU's VMEM budget does not apply.
+// What held the first design back: it found each lane's row with two
+// 64-bit divisions (g / L) and rebuilt the whole window with a k-step
+// loop of shared-memory reads and 64-bit shift-ors, some 300 integer
+// instructions a lane.  A 131072 x 128 packed batch at k=21 took 0.356 ms
+// and the planes at k=31 0.451 ms, against a byte time of 0.022-0.045 ms
+// (H100 80GB HBM3, 700.00 W, chip_smoke.py): the kernel was bound by the
+// SMs' integer issue rate, not by memory.
+//
+// What bounds this one: the bytes it writes (4 or 8 a lane), and then the
+// latency of staging each row, with 57-64 registers a thread holding 32
+// warps an SM.  The same batch takes 0.0434 ms (packed keys, 2.0x its
+// byte time), 0.0588 ms (planes, k=21 and k=31), ASCII keys 0.0659 ms and
+// tally 0.0690 ms, against the first design's 0.3531, 0.3539 / 0.4466,
+// 0.3555 and 0.3578 ms in the same run (H100 80GB HBM3, 700.00 W,
+// bench/redesign_times.py).  It rests on one identity.  Read a row's
+// codes as a little-endian bit stream, base j at bits 2j, and its
+// validity as a stream with base j at bit j.  For the 2k-bit field e that
+// starts at bit 2p:
+//
+//   rc    = ~e & (2^2k - 1)
+//   fwd   = e with its 2-bit groups reversed: the bits reversed, the two
+//           bits of each pair swapped back, shifted right by 64 - 2k
+//   valid = the k validity bits from bit p are all ones, and the length
+//           test above
+//
+// so every window costs two funnel shifts of 32-bit words, two bit
+// reversals and a few masks, whatever k is.  A warp owns one 128-lane
+// segment of four rows at a time (row groups on gridDim.x, segments on
+// gridDim.y, both in grid-stride loops, so no lane divides anything and
+// any L works).  It issues the loads of all four rows before it waits on
+// any (the rows' lengths too), so four times the bytes are in flight per
+// warp, and stages each row's 160 bases (the 31-base halo included) as
+// ten 32-bit code words and five validity words in shared memory: packed
+// input as bytes (no alignment is assumed: rows are L/4 bytes apart and
+// the validity plane is a view at any offset), ASCII input through a
+// 256-entry code table and three ballots per 32 bases into the same words.
+// Each thread then makes 4 consecutive lanes of each row from three code
+// words and two validity words, and writes them with one 16-byte store
+// where the row pitch allows (scalar stores where it does not).  Bases
+// past L stage as zeros; their windows fail the length test.  Tallies are
+// reduced per warp in registers and issued as one atomic pair per block.
+// k <= 16 and k > 16 are separate instances: the short windows fit one
+// word and skip the high half.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kLanesPerThread = 4;
+constexpr int kSeg = 32 * kLanesPerThread;  // lanes a warp makes per row
+constexpr int kRowsPerWarp = 4;             // rows a warp stages at once
 constexpr int kMaxK = 31;
-constexpr uint8_t kInvalid = 255;
+// bases staged per row and segment: kSeg plus the halo, in whole words
+constexpr int kStaged = kSeg + 32;             // 160
+constexpr int kCodeWords = kStaged / 16;       // 10 x 32 bits
+constexpr int kValidWords = kStaged / 32;      // 5 x 32 bits
+constexpr int kCodeBytes = kStaged / 4;        // 40
+constexpr int kValidBytes = kStaged / 8;       // 20
+constexpr uint32_t kInvalid = 4;
+constexpr uint32_t kPairLow = 0x55555555u;
 
 struct Planes {
   const uint8_t* data;   // ASCII [rows, stride] or 2-bit codes [rows, stride]
   const uint8_t* vbits;  // validity bits [rows, vstride] or nullptr
   long long stride;
   long long vstride;
-  int packed;
   int normalized;
 };
 
-__device__ __forceinline__ uint8_t encode_ascii(uint8_t b, int normalized) {
-  const uint8_t up = b & 0xDF;
+// the words a launch masks and shifts by, fixed by k
+struct Window {
+  int k;
+  uint32_t lo_mask;  // low and high words of 2^2k - 1
+  uint32_t hi_mask;
+  uint32_t vmask;    // 2^k - 1
+  int shift;         // 64 - 2k (k > 16) or 32 - 2k (k <= 16)
+};
+
+struct Staged {
+  uint32_t code[kCodeWords];
+  uint32_t valid[kValidWords];
+};
+
+__device__ __forceinline__ uint32_t encode_ascii(uint32_t b, int normalized) {
+  const uint32_t up = b & 0xDF;
   if (up == 'A') return 0;
   if (up == 'C') return 1;
   if (up == 'G') return 2;
@@ -70,19 +122,104 @@ __device__ __forceinline__ uint8_t encode_ascii(uint8_t b, int normalized) {
   return kInvalid;
 }
 
-__device__ __forceinline__ uint8_t load_code(const Planes& in, long long row,
-                                             long long p) {
-  if (!in.packed) {
-    return encode_ascii(in.data[row * in.stride + p], in.normalized);
+// bit i of the low 16 bits of x to bit 2i
+__device__ __forceinline__ uint32_t spread16(uint32_t x) {
+  x &= 0xFFFF;
+  x = (x | (x << 8)) & 0x00FF00FFu;
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  x = (x | (x << 1)) & kPairLow;
+  return x;
+}
+
+// the 2-bit groups of x in reverse order
+__device__ __forceinline__ uint32_t pair_reverse(uint32_t x) {
+  const uint32_t y = __brev(x);
+  return ((y >> 1) & kPairLow) | ((y & kPairLow) << 1);
+}
+
+// Stages bases [s0, s0 + kStaged) of rows row0 .. row0 + kRowsPerWarp - 1
+// (those below `rows`) into `st`, and returns each row's length limit in
+// lim.  Every load is issued before the first store.  Bases at or past L
+// stage as code 0, invalid.
+__device__ __forceinline__ void stage_packed(const Planes& in,
+                                             const int32_t* lengths, int row0,
+                                             int rows, int s0, int L, int lane,
+                                             Staged* st, int* lim) {
+  const int c_left = (L - s0) >> 2;  // code bytes of the row from s0
+  // a row of L = 4 (mod 8) bases has no validity plane; its last
+  // validity byte then stages whole
+  const int v_left = (L - s0 + 7) >> 3;
+  uint32_t c0[kRowsPerWarp], c1[kRowsPerWarp], vb[kRowsPerWarp];
+#pragma unroll
+  for (int g = 0; g < kRowsPerWarp; ++g) {
+    const int row = row0 + g;
+    c0[g] = c1[g] = vb[g] = 0;
+    lim[g] = 0;
+    if (row < rows) {
+      const uint8_t* crow = in.data + (long long)row * in.stride + (s0 >> 2);
+      if (lane < c_left) c0[g] = crow[lane];
+      if (lane + 32 < kCodeBytes && lane + 32 < c_left) c1[g] = crow[lane + 32];
+      if (lane < kValidBytes && lane < v_left) {
+        vb[g] = in.vbits == nullptr
+                    ? 0xFFu
+                    : in.vbits[(long long)row * in.vstride + (s0 >> 3) + lane];
+      }
+      lim[g] = min(lengths[row], L);
+    }
   }
-  // base p sits at bits 2*(p&3) of byte p>>2; its validity at bit p&7 of
-  // byte p>>3
-  const uint8_t c = (in.data[row * in.stride + (p >> 2)] >> (2 * (p & 3))) & 3;
-  if (in.vbits != nullptr &&
-      !((in.vbits[row * in.vstride + (p >> 3)] >> (p & 7)) & 1)) {
-    return kInvalid;
+#pragma unroll
+  for (int g = 0; g < kRowsPerWarp; ++g) {
+    uint8_t* cb = reinterpret_cast<uint8_t*>(st[g].code);
+    cb[lane] = (uint8_t)c0[g];
+    if (lane + 32 < kCodeBytes) cb[lane + 32] = (uint8_t)c1[g];
+    if (lane < kValidBytes) {
+      reinterpret_cast<uint8_t*>(st[g].valid)[lane] = (uint8_t)vb[g];
+    }
   }
-  return c;
+}
+
+__device__ __forceinline__ void stage_ascii(const Planes& in,
+                                            const int32_t* lengths,
+                                            const uint8_t* lut, int row0,
+                                            int rows, int s0, int L, int lane,
+                                            Staged* st, int* lim) {
+  constexpr int kLoads = kStaged / 32;  // 5 bases a lane per row
+  uint32_t raw[kRowsPerWarp][kLoads];
+#pragma unroll
+  for (int g = 0; g < kRowsPerWarp; ++g) {
+    const int row = row0 + g;
+    lim[g] = 0;
+    const uint8_t* arow = in.data + (long long)row * in.stride + s0;
+#pragma unroll
+    for (int m = 0; m < kLoads; ++m) {
+      const int i = 32 * m + lane;
+      // any byte that is not a base encodes as invalid; 0 is one
+      raw[g][m] = row < rows && s0 + i < L ? arow[i] : 0;
+    }
+    if (row < rows) lim[g] = min(lengths[row], L);
+  }
+#pragma unroll
+  for (int g = 0; g < kRowsPerWarp; ++g) {
+    // lane j < 10 builds code word j, lane m < 5 stores validity word m
+    uint32_t my_b0 = 0, my_b1 = 0;
+#pragma unroll
+    for (int m = 0; m < kLoads; ++m) {
+      const uint32_t c = lut[raw[g][m]];
+      const uint32_t b0 = __ballot_sync(0xFFFFFFFFu, c & 1);
+      const uint32_t b1 = __ballot_sync(0xFFFFFFFFu, (c >> 1) & 1);
+      const uint32_t ok = __ballot_sync(0xFFFFFFFFu, c < 4);
+      if ((lane >> 1) == m) {
+        const int half = 16 * (lane & 1);
+        my_b0 = b0 >> half;
+        my_b1 = b1 >> half;
+      }
+      if (lane == m) st[g].valid[m] = ok;
+    }
+    if (lane < kCodeWords) {
+      st[g].code[lane] = spread16(my_b0) | (spread16(my_b1) << 1);
+    }
+  }
 }
 
 // what a launch writes to keys (and keys2)
@@ -92,73 +229,144 @@ enum Mode : int {
   kTally = 2,   // hash keys, 0 where invalid, to keys; the 0/1 weight to keys2
 };
 
-template <int kMode>
+template <int kMode, bool kPacked, bool kWide>
 __global__ void __launch_bounds__(kThreads)
-    hash_keys_kernel(Planes in, const int32_t* __restrict__ lengths,
-                     int32_t* __restrict__ keys,
-                     int32_t* __restrict__ keys2,
-                     unsigned long long* __restrict__ tallies, long long rows,
-                     long long L, int k, uint32_t mask) {
-  __shared__ uint8_t tile[kThreads + kMaxK];
-  const long long n = rows * L;
-  const long long n_tiles = (n + kThreads - 1) / kThreads;
-  unsigned int total = 0;
-  unsigned int fwd_total = 0;
-
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long g0 = t * kThreads;
-    for (int i = threadIdx.x; i < kThreads + k - 1; i += kThreads) {
-      const long long g = g0 + i;
-      uint8_t c = kInvalid;
-      if (g < n) {
-        const long long row = g / L;
-        c = load_code(in, row, g - row * L);
-      }
-      tile[i] = c;
-    }
+    window_kernel(Planes in, const int32_t* __restrict__ lengths,
+                  int32_t* __restrict__ keys, int32_t* __restrict__ keys2,
+                  unsigned long long* __restrict__ tallies, int rows, int L,
+                  int segs, Window w, uint32_t mask) {
+  __shared__ Staged s_rows[kWarps][kRowsPerWarp];
+  __shared__ uint8_t s_lut[256];
+  __shared__ unsigned s_tally[2][kWarps];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (!kPacked) {
+    s_lut[threadIdx.x] = (uint8_t)encode_ascii(threadIdx.x, in.normalized);
     __syncthreads();
+  }
+  const bool vec = (L & 3) == 0;
+  // this thread's lanes start at bit 8 * lane of the segment's code
+  // stream (word lane / 4) and bit 4 * lane of its validity stream (word
+  // lane / 8); the windows reach into the next two and the next word
+  const int cw = lane >> 2;
+  const int c_sh = 8 * (lane & 3);
+  const int vw = lane >> 3;
+  const int v_sh = (4 * lane) & 31;
+  Staged* st = s_rows[warp];
+  unsigned total = 0;
+  unsigned fwd_total = 0;
+  const int groups = rows / kRowsPerWarp + (rows % kRowsPerWarp != 0);
 
-    const long long g = g0 + threadIdx.x;
-    bool valid = false;
-    bool use_rc = false;
-    if (g < n) {
-      const long long row = g / L;
-      const long long end = (g - row * L) + k;
-      valid = end <= (long long)lengths[row] && end <= L;
-      uint64_t fwd = 0;
-      uint64_t rc = 0;
-      for (int j = 0; j < k; ++j) {
-        const uint32_t c = tile[threadIdx.x + j];
-        valid = valid && c < 4;
-        fwd = (fwd << 2) | (c & 3);
-        rc |= (uint64_t)(3 - (c & 3)) << (2 * j);
-      }
-      use_rc = fwd > rc;
-      const uint64_t canon = use_rc ? rc : fwd;
-      const uint32_t hi = (uint32_t)(canon >> 32);
-      const uint32_t lo = (uint32_t)canon;
-      if (kMode == kPlanes) {
-        keys[g] = valid ? (int32_t)hi : -1;
-        keys2[g] = valid ? (int32_t)lo : -1;
+  for (int grp = blockIdx.x * kWarps + warp; grp < groups;
+       grp += gridDim.x * kWarps) {
+    const int row0 = grp * kRowsPerWarp;
+    for (int seg = blockIdx.y; seg < segs; seg += gridDim.y) {
+      const int s0 = seg * kSeg;
+      int lim[kRowsPerWarp];
+      if (kPacked) {
+        stage_packed(in, lengths, row0, rows, s0, L, lane, st, lim);
       } else {
-        const uint32_t h = ((lo * 0x9E3779B1u) ^ (hi * 0x85EBCA77u)) & mask;
-        if (kMode == kTally) {
-          keys[g] = valid ? (int32_t)h : 0;
-          keys2[g] = valid ? 1 : 0;
+        stage_ascii(in, lengths, s_lut, row0, rows, s0, L, lane, st, lim);
+      }
+      __syncwarp();
+      const int p0 = s0 + kLanesPerThread * lane;
+#pragma unroll
+      for (int g = 0; g < kRowsPerWarp; ++g) {
+        const int row = row0 + g;
+        if (row >= rows) break;
+        const uint32_t w0 = st[g].code[cw];
+        const uint32_t w1 = st[g].code[cw + 1];
+        const uint32_t w2 = st[g].code[cw + 2];
+        const uint32_t u0 = st[g].valid[vw];
+        const uint32_t u1 = st[g].valid[vw + 1];
+        int32_t first[kLanesPerThread];
+        int32_t second[kLanesPerThread];
+#pragma unroll
+        for (int i = 0; i < kLanesPerThread; ++i) {
+          const uint32_t e_lo = __funnelshift_r(w0, w1, c_sh + 2 * i);
+          const uint32_t v = __funnelshift_r(u0, u1, v_sh + i);
+          const bool ok = (v & w.vmask) == w.vmask && p0 + i + w.k <= lim[g];
+          uint32_t f_hi = 0, f_lo, r_hi = 0;
+          const uint32_t r_lo = ~e_lo & w.lo_mask;
+          if (kWide) {
+            const uint32_t e_hi = __funnelshift_r(w1, w2, c_sh + 2 * i);
+            r_hi = ~e_hi & w.hi_mask;
+            // the reversed 64-bit field: high word from e_lo, low from e_hi
+            const uint32_t n_hi = pair_reverse(e_lo);
+            f_lo = __funnelshift_r(pair_reverse(e_hi), n_hi, w.shift);
+            f_hi = n_hi >> w.shift;
+          } else {
+            f_lo = pair_reverse(e_lo) >> w.shift;
+          }
+          const uint64_t fwd = ((uint64_t)f_hi << 32) | f_lo;
+          const uint64_t rc = ((uint64_t)r_hi << 32) | r_lo;
+          const bool use_rc = fwd > rc;
+          const uint32_t hi = use_rc ? r_hi : f_hi;
+          const uint32_t lo = use_rc ? r_lo : f_lo;
+          total += ok;
+          fwd_total += ok && !use_rc;
+          if (kMode == kPlanes) {
+            first[i] = ok ? (int32_t)hi : -1;
+            second[i] = ok ? (int32_t)lo : -1;
+          } else {
+            const uint32_t h = ((lo * 0x9E3779B1u) ^ (hi * 0x85EBCA77u)) & mask;
+            if (kMode == kTally) {
+              first[i] = ok ? (int32_t)h : 0;
+              second[i] = ok ? 1 : 0;
+            } else {
+              first[i] = ok ? (int32_t)h : -1;
+            }
+          }
+        }
+        const long long at = (long long)row * L + p0;
+        if (vec && p0 + kLanesPerThread <= L) {
+          *reinterpret_cast<int4*>(keys + at) =
+              make_int4(first[0], first[1], first[2], first[3]);
+          if (kMode != kKeys) {
+            *reinterpret_cast<int4*>(keys2 + at) =
+                make_int4(second[0], second[1], second[2], second[3]);
+          }
         } else {
-          keys[g] = valid ? (int32_t)h : -1;
+#pragma unroll
+          for (int i = 0; i < kLanesPerThread; ++i) {
+            if (p0 + i < L) {
+              keys[at + i] = first[i];
+              if (kMode != kKeys) keys2[at + i] = second[i];
+            }
+          }
         }
       }
+      __syncwarp();  // the next staging overwrites the words
     }
-    // both counts come back to every thread; the barrier also keeps the
-    // next tile's staging from overwriting codes still being read
-    total += __syncthreads_count(valid);
-    fwd_total += __syncthreads_count(valid && !use_rc);
   }
-  if (threadIdx.x == 0 && total != 0) {
-    atomicAdd(&tallies[0], (unsigned long long)total);
-    atomicAdd(&tallies[1], (unsigned long long)fwd_total);
+  total = __reduce_add_sync(0xFFFFFFFFu, total);
+  fwd_total = __reduce_add_sync(0xFFFFFFFFu, fwd_total);
+  if (lane == 0) {
+    s_tally[0][warp] = total;
+    s_tally[1][warp] = fwd_total;
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long t = 0;
+    unsigned long long f = 0;
+    for (int i = 0; i < kWarps; ++i) {
+      t += s_tally[0][i];
+      f += s_tally[1][i];
+    }
+    if (t != 0) {
+      atomicAdd(&tallies[0], t);
+      atomicAdd(&tallies[1], f);
+    }
+  }
+}
+
+template <int kMode, bool kPacked, bool kWide>
+void launch_one(dim3 grid, cudaStream_t stream, const Planes& in,
+                const int32_t* lengths, int32_t* keys, int32_t* keys2,
+                unsigned long long* tallies, int rows, int L, int segs,
+                const Window& w, uint32_t mask) {
+  window_kernel<kMode, kPacked, kWide><<<grid, kThreads, 0, stream>>>(
+      in, lengths, keys, keys2, tallies, rows, L, segs, w, mask);
 }
 
 template <int kMode>
@@ -166,24 +374,53 @@ int launch(const void* data, const void* vbits, const void* lengths,
            void* keys, void* keys2, void* tallies, long long rows,
            long long L, long long stride, long long vstride, int k,
            unsigned int mask, int packed, int normalized, void* stream) {
-  if (k < 1 || k > kMaxK || rows <= 0 || L <= 0) {
+  // rows and L are 32-bit in the kernel; L stays clear of 2^31 with a
+  // segment to spare, so no segment start overflows
+  if (k < 1 || k > kMaxK || rows <= 0 || L <= 0 || rows > 0x7FFFFFFFLL ||
+      L > 0x7FFFFFFFLL - kSeg) {
     return (int)cudaErrorInvalidValue;
   }
+  const int n_rows = (int)rows;
+  const int width = (int)L;
   int device = 0;
   int sms = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long n_tiles = (rows * L + kThreads - 1) / kThreads;
-  const long long cap = (long long)(sms > 0 ? sms : 1) * 16;
-  const unsigned int blocks = (unsigned int)(n_tiles < cap ? n_tiles : cap);
-  Planes in{static_cast<const uint8_t*>(data),
-            static_cast<const uint8_t*>(vbits), stride, vstride, packed,
-            normalized};
-  hash_keys_kernel<kMode>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          in, static_cast<const int32_t*>(lengths),
-          static_cast<int32_t*>(keys), static_cast<int32_t*>(keys2),
-          static_cast<unsigned long long*>(tallies), rows, L, k, mask);
+  const int segs = (width + kSeg - 1) / kSeg;
+  const int gy = segs < 65535 ? segs : 65535;
+  // about 16 blocks an SM in all; the grid-stride loops take the rest,
+  // and each block issues one atomic pair
+  int gx = (sms > 0 ? sms : 1) * 16 / gy;
+  const int groups = n_rows / kRowsPerWarp + (n_rows % kRowsPerWarp != 0);
+  const int group_blocks = (groups + kWarps - 1) / kWarps;
+  if (gx > group_blocks) gx = group_blocks;
+  if (gx < 1) gx = 1;
+  const uint64_t fmask = (1ull << (2 * k)) - 1;
+  const bool wide = k > 16;
+  const Window w{k, (uint32_t)fmask, (uint32_t)(fmask >> 32),
+                 (1u << k) - 1, (wide ? 64 : 32) - 2 * k};
+  const Planes in{static_cast<const uint8_t*>(data),
+                  static_cast<const uint8_t*>(vbits), stride, vstride,
+                  normalized};
+  const dim3 grid((unsigned)gx, (unsigned)gy);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* len = static_cast<const int32_t*>(lengths);
+  int32_t* k1 = static_cast<int32_t*>(keys);
+  int32_t* k2 = static_cast<int32_t*>(keys2);
+  unsigned long long* t = static_cast<unsigned long long*>(tallies);
+  if (packed && wide) {
+    launch_one<kMode, true, true>(grid, st, in, len, k1, k2, t, n_rows, width,
+                                  segs, w, mask);
+  } else if (packed) {
+    launch_one<kMode, true, false>(grid, st, in, len, k1, k2, t, n_rows,
+                                   width, segs, w, mask);
+  } else if (wide) {
+    launch_one<kMode, false, true>(grid, st, in, len, k1, k2, t, n_rows,
+                                   width, segs, w, mask);
+  } else {
+    launch_one<kMode, false, false>(grid, st, in, len, k1, k2, t, n_rows,
+                                    width, segs, w, mask);
+  }
   return (int)cudaGetLastError();
 }
 

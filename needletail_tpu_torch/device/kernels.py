@@ -33,7 +33,8 @@ each kernel against them.  They compute in int64: PyTorch implements no
 low 32 bits a ``uint32`` product would give.
 
 :data:`LAUNCHES` counts kernel launches by kernel name, one per launch
-(one per sort for the block sort, whatever its number of passes).
+(one per sort for the block sort, whatever its number of kernels and
+passes).
 """
 
 from __future__ import annotations
@@ -727,8 +728,10 @@ def _block_sort_lib() -> ctypes.CDLL:
     fn = lib.nt_block_sort
     if fn.argtypes is None:
         p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, p, ll, ll, p]
+        fn.argtypes = [p, p, p, ll, ll, p]
         fn.restype = ctypes.c_int
+        lib.nt_block_sort_scratch.argtypes = [ll, ll]
+        lib.nt_block_sort_scratch.restype = ll
     return lib
 
 
@@ -748,10 +751,19 @@ def bitonic_block_sort(x: torch.Tensor, block_lanes: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    fn = _block_sort_lib().nt_block_sort
+    lib = _block_sort_lib()
+    # spans past one CTA's tile merge through a ping-pong buffer
+    lanes = lib.nt_block_sort_scratch(x.numel(), block_lanes)
+    if lanes < 0:
+        raise ValueError(f"block_sort takes at most 2^31 lanes, got {x.numel()}")
+    scratch = torch.empty(lanes, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), block_lanes, stream)
+        err = lib.nt_block_sort(
+            x.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if lanes else None,
+            x.numel(), block_lanes, stream,
+        )
     if err != 0:
         raise RuntimeError(f"block_sort kernel launch failed: CUDA error {err}")
     LAUNCHES["block_sort"] += 1

@@ -14,7 +14,8 @@ from ..batch import PackedReadBatch
 from ..encoding import pack_codes_host_rows
 
 __all__ = [
-    "CLEAN", "DIRTY", "random_reads", "packed_batch", "synthetic_genome",
+    "CLEAN", "DIRTY", "random_reads", "packed_batch", "packed_rows",
+    "odd_offset_view", "synthetic_genome",
 ]
 
 # case-folded bases only: every in-length byte encodes
@@ -75,6 +76,36 @@ def packed_batch(
     return PackedReadBatch(
         codes=codes, lengths=lengths, vbits=vbits, normalized=normalized
     )
+
+
+def packed_rows(
+    rng: np.random.Generator, rows: int, width: int, dirty_frac: float = 0.0
+):
+    """``(codes uint8 [rows, width/4], vbits uint8 [rows, width/8] or None,
+    lengths int32 [rows])``: :func:`random_reads` packed at ``width``
+    bases, a multiple of 4.  A validity plane needs a multiple of 8, so
+    reads of any other width are clean, packed at the next multiple of 8
+    and cut back: a row pitch of ``width / 4`` bytes, whatever it is."""
+    if width % 4 or (width % 8 and dirty_frac):
+        raise ValueError(f"no packed rows of {width} bases at dirty_frac {dirty_frac}")
+    wide = -(-width // 8) * 8
+    seqs, lengths = random_reads(rng, rows, wide, dirty_frac)
+    lengths = np.minimum(lengths, width).astype(np.int32)
+    seqs[:, width:] = 0
+    codes, vbits, _ = pack_codes_host_rows(seqs, lengths)
+    return np.ascontiguousarray(codes[:, : width // 4]), vbits, lengths
+
+
+def odd_offset_view(plane):
+    """``plane`` (a uint8 tensor) copied to byte offset 1 of a new buffer
+    on its device: a validity plane as unaligned as a view of the wire can
+    be."""
+    import torch
+
+    buf = torch.empty(plane.numel() + 1, dtype=torch.uint8, device=plane.device)
+    view = buf[1:].view(plane.shape)
+    view.copy_(plane)
+    return view
 
 
 def synthetic_genome(

@@ -15,7 +15,9 @@ import torch
 
 from needletail_tpu_torch.device import kernels as tk
 from needletail_tpu_torch.device.ops import resolve_vbits, unwire
-from needletail_tpu_torch.utils.synth import packed_batch, random_reads
+from needletail_tpu_torch.utils.synth import (
+    odd_offset_view, packed_batch, packed_rows, random_reads,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -267,3 +269,82 @@ def test_cuda_multi_k_matches_plain(cuda_device, tmp_path):
     for k in (21, 31):
         np.testing.assert_array_equal(got[1][k][0], want[1][k][0])
         np.testing.assert_array_equal(got[1][k][1], 8 * want[1][k][1])
+
+
+def _assert_window_modes(packed, args, k, normalized=True):
+    """Keys, planes and (ASCII only) tally of one input equal to their
+    plain versions."""
+    if packed:
+        pairs = (
+            (tk.canonical_hash_keys_packed, tk.canonical_hash_keys_packed_plain,
+             (*args, k, 16)),
+            (tk.canonical_key_planes_packed,
+             tk.canonical_key_planes_packed_plain, (*args, k)),
+        )
+    else:
+        pairs = (
+            (tk.canonical_hash_keys, tk.canonical_hash_keys_plain,
+             (*args, k, 16, normalized)),
+            (tk.canonical_key_planes, tk.canonical_key_planes_plain,
+             (*args, k, normalized)),
+            (tk.canonical_hash_tally, tk.canonical_hash_tally_plain,
+             (*args, k, 16, normalized)),
+        )
+    for fn, plain, a in pairs:
+        for got, want in zip(fn(*a), plain(*a)):
+            assert torch.equal(got, want), (fn.__name__, k)
+
+
+@pytest.mark.parametrize("width", [150, 152, 156, 40_000])
+def test_cuda_window_modes_ascii_widths(cuda_device, width):
+    """Every mode over ASCII rows whose pitch is no multiple of 4 (150,
+    156), of 8 but not 16 (152), and wider than one segment (40,000)."""
+    rng = np.random.default_rng(70 + width % 97)
+    rows = 16 if width > 1000 else 300
+    seqs, lengths = random_reads(rng, rows, width, dirty_frac=0.5)
+    args = (torch.from_numpy(seqs).to(cuda_device),
+            torch.from_numpy(lengths).to(cuda_device))
+    for k in KS:
+        for normalized in (True, False):
+            _assert_window_modes(False, args, k, normalized)
+
+
+@pytest.mark.parametrize("width", [152, 40_000])
+def test_cuda_window_modes_packed_unaligned_vbits(cuda_device, width):
+    """Packed rows of 38-byte pitch and wider than a segment, with the
+    validity plane a view at an odd byte offset."""
+    rng = np.random.default_rng(80 + width % 89)
+    rows = 16 if width > 1000 else 300
+    seqs, lengths = random_reads(rng, rows, width, dirty_frac=1.0)
+    batch = packed_batch(seqs, lengths, 1)
+    codes = torch.from_numpy(batch.codes).to(cuda_device)
+    vb = odd_offset_view(torch.from_numpy(batch.vbits).to(cuda_device))
+    assert vb.data_ptr() % 2 == 1
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    for k in KS:
+        _assert_window_modes(True, (codes, vb, ln), k)
+
+
+def test_cuda_window_modes_packed_width_156(cuda_device):
+    """Clean packed rows of 156 bases (39 bytes): no validity plane, and a
+    last validity byte that covers only four bases."""
+    codes, _, lengths = packed_rows(np.random.default_rng(90), 300, 156)
+    codes = torch.from_numpy(codes).to(cuda_device)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    for k in KS:
+        _assert_window_modes(True, (codes, None, ln), k)
+
+
+@pytest.mark.parametrize("block", [1 << 18, 1 << 20])
+def test_cuda_block_sort_merge_passes(cuda_device, block):
+    """Spans that take 5 and 7 merge passes, over keys with many
+    duplicates, the top bit set on a third of them; ``x`` is unchanged."""
+    rng = np.random.default_rng(block)
+    keys = rng.integers(0, 97, 1 << 21).astype(np.uint32) * np.uint32(0x01010101)
+    keys[::3] |= np.uint32(1 << 31)
+    for plane in (keys, np.full_like(keys, 0xFFFFFFFF)):
+        x = torch.from_numpy(plane.view(np.int32)).to(cuda_device)
+        before = x.clone()
+        got = tk.bitonic_block_sort(x, block)
+        assert torch.equal(x, before)
+        assert torch.equal(got, tk.block_sort_plain(x, block))
