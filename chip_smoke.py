@@ -14,16 +14,21 @@ Phases, each fatal on failure:
    hash-tally planes over k, ASCII (and for the first two packed) input,
    the three wire validity shapes (a validity plane at an odd byte
    offset) and read widths whose pitch is no multiple of 8 bytes; the
-   histogram on uniform, skewed and mostly-invalid keys; slot compaction
-   over wide and narrow sorted runs, random flags, an overflowing chunk
-   and ragged lengths; the block sort at spans from 128 to 2^20 lanes on
+   histogram on uniform, skewed and mostly-invalid keys, on views that
+   start off a 16-byte boundary and lengths that are no multiple of 4 or
+   shorter than one step; slot compaction over wide and
+   narrow sorted runs, random flags, an overflowing chunk and ragged
+   lengths, at chunks of 32, 96, 128, 1024 and 2048 lanes, slots up to
+   past the chunk, a stream shorter than a chunk and counts off a 16-byte
+   boundary; the block sort at spans from 128 to 2^20 lanes on
    random, top-bit, all-equal, few-distinct, sorted and reversed keys,
    its input unchanged;
 3. the hash path at full size: ``hash_count_file`` over the golden FASTQ
    written 256 times (64M bases) at batch 131072 x 128, through both of
    its kernels (launch counts read around this run), to the x256 goldens
    and 256 x the one-copy table of the plain path; then its bases/s (best
-   of 2 after a warm-up) and the metered stage table;
+   of 2 after a warm-up), the metered stage table and a
+   ``torch.profiler`` view of the device's time by kernel;
 4. ``packed=False`` and an interrupted checkpoint/resume of the hash path
    at a smaller depth, equal to the per-copy results;
 5. the exact path at full size: ``count_file`` over the same 64M bases at
@@ -55,9 +60,10 @@ Phases, each fatal on failure:
 11. each other kernel's time beside its plain version's, its bound and,
    where one PyTorch call computes the same function, that call's, at the
    main paths' shapes (CUDA events around calls queued behind a spin, so
-   the card's time and not the host's), and the times of the flush's sort
-   and of its whole run count (``unique_counts``: the sort, run heads and
-   lengths);
+   the card's time and not the host's), the histogram also on one hot key
+   and on 90% invalid keys, the compaction also on its second cascade
+   pass, and the times of the flush's sort and of its whole run count
+   (``unique_counts``: the sort, run heads and lengths);
 12. stop every process the run started (the framing pool's resource
    tracker) and fail if a child is still alive; then a
    ``{"kernels": [...]}`` line and the last line
@@ -267,11 +273,16 @@ def check_window_kernels(errors: Errors, rng) -> int:
     return cases
 
 
+def hold_histogram(errors: Errors, what: str, keys, weight=None) -> None:
+    from needletail_tpu_torch.device import kernels as K_
+
+    errors.hold("histogram16", what, K_.mxu_histogram16(keys, weight),
+                K_.histogram16_plain(keys, weight))
+
+
 def check_histogram(errors: Errors, rng) -> int:
     import numpy as np
     import torch
-
-    from needletail_tpu_torch.device import kernels as K_
 
     n = HIST_KEYS
     uniform = rng.integers(0, 1 << 16, n, dtype=np.int32)
@@ -285,28 +296,39 @@ def check_histogram(errors: Errors, rng) -> int:
     }
     for what, keys in inputs.items():
         t = torch.from_numpy(keys).to("cuda").view(BATCH, MAX_LEN)
-        errors.hold(
-            "histogram16", what, K_.mxu_histogram16(t), K_.histogram16_plain(t)
-        )
+        hold_histogram(errors, what, t)
     t = torch.from_numpy(uniform).to("cuda").view(BATCH, MAX_LEN)
     w = torch.from_numpy(rng.integers(-1, 2, n, dtype=np.int32)).to("cuda")
-    w = w.view(BATCH, MAX_LEN)
-    errors.hold(
-        "histogram16", "weighted",
-        K_.mxu_histogram16(t, w), K_.histogram16_plain(t, w),
-    )
+    hold_histogram(errors, "weighted", t, w.view(BATCH, MAX_LEN))
+    # a head that is not 16-byte aligned, a tail short of four keys, and
+    # inputs shorter than one cluster's first step (2 x 1024 x 16 keys)
+    flat = torch.from_numpy(inputs["wide"]).to("cuda")
+    cases = len(inputs) + 1
+    for what, view in (
+        ("offset 1", flat[1:]),
+        ("offset 2, n % 4 == 1", flat[2:2 + 4 * 100_001 + 1]),
+        ("offset 3, n % 4 == 3", flat[3:3 + 4 * 999 + 3]),
+        ("n % 4 == 2", flat[:4 * 7777 + 2]),
+        ("n = 3 at offset 1", flat[1:4]),
+        ("n = 1", flat[5:6]),
+        ("n = 33, 4 x 32 + 1", flat[:129]),
+        ("one step less one key", flat[1:2 * 1024 * 16]),
+    ):
+        hold_histogram(errors, what, view)
+        cases += 1
     torch.cuda.synchronize()
-    return len(inputs) + 1
+    return cases
 
 
-def hold_compact(errors: Errors, what: str, hi, lo, counts) -> bool:
-    """Slot compaction of one stream against its plain version; returns
-    the kernel's ``ok``."""
+def hold_compact(errors: Errors, what: str, hi, lo, counts, **shape) -> bool:
+    """Slot compaction of one stream against its plain version (``shape``:
+    ``chunk`` and ``slots``); returns the kernel's ``ok``."""
     from needletail_tpu_torch.device import kernels as K_
 
-    got = K_.mxu_compact_slots(hi, lo, counts)
+    got = K_.mxu_compact_slots(hi, lo, counts, **shape)
     errors.hold_all(
-        "compact_slots", what, got, K_.compact_slots_plain(hi, lo, counts),
+        "compact_slots", what, got,
+        K_.compact_slots_plain(hi, lo, counts, **shape),
         ("hi", "lo", "counts", "ok"),
     )
     return bool(got[3])
@@ -356,6 +378,30 @@ def check_compact_slots(errors: Errors, rng) -> int:
         if hold_compact(errors, "overflowing chunk", hi, lo, c):
             raise AssertionError("compact_slots: overflow not reported")
         cases += 1
+    # chunks off the 128-lane segments (32, 96) and of several 512-lane
+    # tiles (2048), slots >= chunk, a stream shorter than one chunk, and
+    # counts not 16-byte aligned: the scalar path and the carry
+    n = 300_007
+    base = rng.integers(-(1 << 31), 1 << 31, (3, n + 3), dtype=np.int64)
+    base[2] = np.where(rng.random(n + 3) < 0.12, rng.integers(1, 50, n + 3), 0)
+    hi, lo, counts = torch.from_numpy(base.astype(np.int32)).to(dev)
+    for what, shape, m, off in (
+        ("chunk 32 slots 8", dict(chunk=32, slots=8), n, 0),
+        ("chunk 96 slots 16", dict(chunk=96, slots=16), n, 0),
+        ("chunk 2048 slots 256", dict(chunk=2048, slots=256), n, 0),
+        ("chunk 128 slots 128", dict(chunk=128, slots=128), n, 0),
+        ("chunk 32 slots 40", dict(chunk=32, slots=40), n, 0),
+        ("short stream", {}, 700, 0),
+        ("short stream chunk 2048", dict(chunk=2048, slots=128), 1500, 0),
+        ("counts at offset 1", {}, n, 1),
+        ("counts at offset 3, chunk 2048", dict(chunk=2048, slots=256), n, 3),
+    ):
+        for h in (hi[off:off + m], None):
+            ok = hold_compact(errors, what, h, lo[off:off + m],
+                              counts[off:off + m], **shape)
+            if what == "chunk 32 slots 8" and ok:
+                raise AssertionError("compact_slots: overflow not reported")
+            cases += 1
     torch.cuda.synchronize()
     return cases
 
@@ -499,8 +545,17 @@ def time_kernels(errors: Errors, path: str) -> dict:
     # bincount takes no negative keys: the yardstick counts key + 1 into
     # 65,537 bins, bin 0 collecting the invalid lanes
     shifted = (keys + 1).reshape(-1).to(torch.int64)
+    # one hot key (every add to one bin), and 90% invalid keys
+    skewed = torch.full_like(keys, 12345)
+    invalid = torch.where(torch.rand(keys.shape, device=keys.device) < 0.9,
+                          -1, keys)
+    for what, t in (("skewed", skewed), ("invalid", invalid)):
+        errors.hold("histogram16", f"timed {what} keys",
+                    K_.mxu_histogram16(t), K_.histogram16_plain(t))
     out["histogram16"] = {
         "ms": cuda_ms(lambda: K_.mxu_histogram16(keys), 20),
+        "skewed_ms": cuda_ms(lambda: K_.mxu_histogram16(skewed), 20),
+        "invalid_ms": cuda_ms(lambda: K_.mxu_histogram16(invalid), 20),
         "plain_ms": cuda_ms(lambda: K_.histogram16_plain(keys), 5, warmup=1),
         "library_ms": cuda_ms(
             lambda: torch.bincount(shifted, minlength=(1 << 16) + 1), 20
@@ -510,7 +565,7 @@ def time_kernels(errors: Errors, path: str) -> dict:
                           keys.numel() * HIST_OPS_PER_KEY),
         "shape": f"[{BATCH * MAX_LEN}] keys",
     }
-    del keys, shifted, got, want
+    del keys, shifted, got, want, skewed, invalid
 
     got = K_.canonical_hash_tally(seqs, ln, K, 16)
     errors.hold_all(
@@ -580,20 +635,35 @@ def time_kernels(errors: Errors, path: str) -> dict:
     if not hold_compact(errors, "main-path flush", *runs):
         raise AssertionError("compact_slots overflowed on the main-path flush")
     first = K_.mxu_compact_slots(*runs)
-    # the function needs counts at every lane, and hi/lo only at the
-    # flagged run heads: one 32-byte sector of each plane per 8 lanes that
-    # hold a head
-    heads = (runs[2] > 0).nonzero().reshape(-1)
-    sectors = int(torch.unique(heads // 8).numel())
-    head_bytes = sectors * 32 * (2 if runs[0] is not None else 1)
+    # the cascade keeps the first pass's output where the second overflows
+    second_ok = hold_compact(errors, "main-path second pass", *first[:3])
+    second = K_.mxu_compact_slots(*first[:3])
+
+    def compact_bound(hi, lo, counts, out):
+        """The pass's bound: counts at every lane, hi/lo only at the
+        flagged run heads (one 32-byte sector of each plane per 8 lanes
+        that hold a head), the slots written once."""
+        heads = (counts > 0).nonzero().reshape(-1)
+        sectors = int(torch.unique(heads // 8).numel())
+        head_bytes = sectors * 32 * (2 if hi is not None else 1)
+        return bound_ms(nbytes(counts) + head_bytes + nbytes(*out[:3]) + 1,
+                        lo.numel() * COMPACT_OPS_PER_LANE), heads, sectors
+
+    bound, heads, sectors = compact_bound(*runs, first)
+    second_bound = compact_bound(*first[:3], second)[0]
     out["compact_slots"] = {
         "ms": cuda_ms(lambda: K_.mxu_compact_slots(*runs), 20),
+        "second_pass_ms": cuda_ms(
+            lambda: K_.mxu_compact_slots(*first[:3]), 20
+        ),
+        "second_pass_lanes": first[1].numel(),
+        "second_pass_ok": second_ok,
         "plain_ms": cuda_ms(
             lambda: K_.compact_slots_plain(*runs), 3, warmup=1
         ),
         "library_ms": None,
-        "bound": bound_ms(nbytes(runs[2]) + head_bytes + nbytes(*first[:3])
-                          + 1, flush_lanes * COMPACT_OPS_PER_LANE),
+        "bound": bound,
+        "second_pass_bound_ms": second_bound[0],
         "shape": f"[{flush_lanes}] lanes k={K}",
         "flush_sort_ms": sort_ms,
         "flush_runs_ms": runs_ms,
@@ -814,11 +884,32 @@ def run_exact_main_path(big: Path, card: str) -> dict:
     return out
 
 
+# the port's own kernels (csrc/*.cu), by function name
+PORT_KERNELS = (
+    "window_kernel", "histogram16_kernel", "sum_partials_kernel",
+    "compact_slots_kernel", "tile_kernel", "split_kernel", "merge_kernel",
+)
+
+
+def device_time_by_name(events) -> dict:
+    """``{name: [ms, calls]}`` from ``(name, device_us, calls)`` triples,
+    summed over every triple of one full name, largest first."""
+    by_name = {}
+    for name, us, calls in events:
+        if us > 0:
+            ms_calls = by_name.setdefault(name, [0.0, 0])
+            ms_calls[0] += us / 1e3
+            ms_calls[1] += calls
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1][0]))
+
+
 def device_profile(fn) -> dict:
     """Wall seconds of ``fn()`` under ``torch.profiler``, and the device
     time (ms) of its kernels and copies, in all and by name (largest
-    first).  Streams that overlap count twice, so the busy share is an
-    upper bound."""
+    first; names cut to 80 characters only in ``top_ms_calls``), with the
+    port's own kernels listed apart (``port_ms_calls``) whatever their
+    rank.  Streams that overlap count twice, so the busy share is an upper
+    bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -828,22 +919,27 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
+    events = []
     for evt in prof.key_averages():
         if "CUDA" not in str(evt.device_type):
             continue  # host events; their kernels are listed on their own
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if us > 0:
-            by_name[evt.key[:80]] = (us / 1e3, evt.count)
+        events.append((evt.key, us, evt.count))
+    by_name = device_time_by_name(events)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "wall_s": wall,
         "device_ms": busy_ms,
         "busy_share": busy_ms / 1e3 / wall,
-        "top_ms_calls": [[name, ms, n] for name, (ms, n) in top],
+        "kernels": len(by_name),
+        "top_ms_calls": [[name[:80], ms, n]
+                         for name, (ms, n) in list(by_name.items())[:16]],
+        "port_ms_calls": [
+            [name[:80], ms, n] for name, (ms, n) in by_name.items()
+            if any(f"::{k}" in name for k in PORT_KERNELS)
+        ],
     }
 
 
@@ -1230,8 +1326,10 @@ def kernel_entry(name, source, replaces, launches, worst, t) -> dict:
         "tolerance": 0,
         "shape": t["shape"],
     }
-    for key in ("ascii_ms", "ascii_plain_ms", "library", "flush_sort_ms",
-                "flush_runs_ms", "distinct", "head_sectors", "by_block"):
+    for key in ("ascii_ms", "ascii_plain_ms", "library", "skewed_ms",
+                "invalid_ms", "second_pass_ms", "second_pass_lanes",
+                "second_pass_ok", "second_pass_bound_ms", "flush_sort_ms", "flush_runs_ms",
+                "distinct", "head_sectors", "by_block"):
         if key in t:
             entry[key] = t[key]
     if "ascii_bound" in t:
@@ -1355,6 +1453,12 @@ def run() -> int:
         )
         log("metered stages:\n" + meter.report())
         log("metered stages json: " + json.dumps(meter.as_dict()))
+        prof = device_profile(lambda: expect(
+            hash_count_file(str(big), K, batch_size=BATCH, max_len=MAX_LEN,
+                            device="cuda"),
+            COPIES, table1, "profiled main path",
+        ))
+        log("hash device profile: " + json.dumps(prof))
 
         # ---- 4. ASCII transport, checkpoint and resume ----------------
         expect(

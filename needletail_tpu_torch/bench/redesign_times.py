@@ -1,6 +1,8 @@
-"""Card times of the window kernels (``csrc/hash_keys.cu``) and the block
-sort (``csrc/block_sort.cu``) of this checkout and, with ``--against DIR``,
-of another checkout of the repository, on the same inputs in one run.
+"""Card times of the window kernels (``csrc/hash_keys.cu``), the histogram
+(``csrc/histogram16.cu``), the slot compaction (``csrc/compact_slots.cu``)
+and the block sort (``csrc/block_sort.cu``) of this checkout and, with
+``--against DIR``, of another checkout of the repository, on the same
+inputs in one run.
 
     python3 needletail_tpu_torch/bench/redesign_times.py [--against DIR]
 
@@ -12,14 +14,20 @@ checkout's ``bench.cuda_ms`` (the calls queued behind a spin kernel), so
 both read on one clock whatever the other checkout's ``cuda_ms`` does.
 The inputs are ``chip_smoke.py``'s: the first 131,072 x 128 batch of
 ``tests/data/PRJNA271013_head.fq`` written over and over, framed packed
-(with its validity plane and without one) and as ASCII, and 2^23 random
-uint32 keys of seed 0 for the block sort at spans of 2^14, 2^16 and 2^17.
-Each output's digest (its parts summed as int64) must be the same in
-every process, or the run fails.
+(with its validity plane and without one) and as ASCII; its 16,777,216
+hash keys at k=21 for the histogram, beside one hot key as many times
+and the keys with 90% of them made invalid (seed 1); the exact flush of
+the file written 256 times at k=21 (55,574,528 lanes of sorted runs) and
+that flush's first compaction pass (6,946,816 slots) for the two
+cascade passes; and 2^23 random uint32 keys of seed 0 for the block sort
+at spans of 2^14, 2^16 and 2^17.  Each output's digest (each part's sum
+and its sum weighted by position) must be the same in every process, or
+the run fails.
 
 Prints one JSON line per process, the card's name and power limit, and a
-last line ``{"card": ..., "ms": {label: {name: [ms, ...]}}}``.  It needs a
-CUDA GPU and ``nvidia-smi``.
+last line ``{"card": ..., "ms": {label: {name: [ms, ...]}}, "ratio":
+{name: previous / this}}`` (the mean of each label's runs; ``ratio`` with
+``--against`` only).  It needs a CUDA GPU and ``nvidia-smi``.
 """
 
 from __future__ import annotations
@@ -37,9 +45,11 @@ HERE = Path(__file__).resolve()
 ROOT = HERE.parents[2]
 FQ = ROOT / "tests" / "data" / "PRJNA271013_head.fq"
 BATCH, MAX_LEN, K = 131072, 128, 21
+COPIES = 256  # the exact flush's file: 64M bases
 SORT_LANES = 1 << 23
 SORT_BLOCKS = (1 << 14, 1 << 16, 1 << 17)
 WINDOW_REPS, SORT_REPS = 20, 10
+HOT_KEY = 12345
 
 
 def _bench():
@@ -54,11 +64,20 @@ def _bench():
 
 
 def _digest(out) -> list:
+    """Each tensor part's sum and its sum weighted by position (mod
+    65,521), as int64; None parts give None."""
     import torch
 
     parts = out if isinstance(out, tuple) else (out,)
-    return [int(p.to(torch.int64).sum()) if torch.is_tensor(p) else int(p)
-            for p in parts]
+    digest = []
+    for p in parts:
+        if p is None or not torch.is_tensor(p):
+            digest.append(None if p is None else int(p))
+            continue
+        v = p.reshape(-1).to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        digest.append([int(v.sum()), int((v * w).sum())])
+    return digest
 
 
 def _inputs(tmp: Path):
@@ -101,10 +120,38 @@ def _inputs(tmp: Path):
     return (codes, vb, lengths), (seqs, ln), x
 
 
+def _flush_runs(tmp: Path):
+    """The exact path's flush at k=21 over the file written ``COPIES``
+    times: the sorted runs that the first cascade pass reads."""
+    import torch
+
+    from needletail_tpu_torch.device import count as C_
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.ops import resolve_vbits, unwire
+    from needletail_tpu_torch.io.fast_batch import fast_read_batches
+
+    path = tmp / "reads_x256.fq"
+    path.write_bytes(FQ.read_bytes() * COPIES)
+    parts = []
+    for b in fast_read_batches(str(path), batch_size=BATCH, max_len=MAX_LEN,
+                               packed=True):
+        buf, layout = b.wire_frame(b.num_reads)
+        codes, ln, vbits, vrow_idx, vrows = unwire(
+            torch.from_numpy(buf).to("cuda"), layout
+        )
+        vb = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
+        hi, lo, _, _ = K_.canonical_key_planes_packed(codes, vb, ln, K)
+        w = hi.shape[1] - K + 1
+        parts.append((hi[:, :w].reshape(-1), lo[:, :w].reshape(-1)))
+    path.unlink()
+    return C_.unique_counts(*C_._concat_pad_parts(parts, 1 << 20))
+
+
 def time_tree(tree: Path) -> dict:
     """``{name: {"ms", "digest"}}`` of ``tree``'s kernels on this process's
     card."""
     sys.path.insert(0, str(tree))
+    import numpy as np
     import torch
 
     from needletail_tpu_torch.device import kernels as K_
@@ -114,6 +161,17 @@ def time_tree(tree: Path) -> dict:
     cuda_ms = _bench().cuda_ms
     with tempfile.TemporaryDirectory() as tmp:
         (codes, vb, lengths), (seqs, ln), x = _inputs(Path(tmp))
+        runs = _flush_runs(Path(tmp))
+    first_pass = K_.mxu_compact_slots(*runs)[:3]
+    keys = K_.canonical_hash_keys_packed(codes, vb, lengths, K, 16)[0]
+    drop = np.random.default_rng(1).random(keys.numel()) < 0.9
+    hist_inputs = {
+        "main-path keys": keys,
+        "one hot key": torch.full_like(keys, HOT_KEY),
+        "90% invalid": torch.where(
+            torch.from_numpy(drop).to("cuda").view(keys.shape), -1, keys
+        ),
+    }
     calls = {
         "hash_keys packed": lambda: K_.canonical_hash_keys_packed(
             codes, vb, lengths, K, 16),
@@ -129,6 +187,12 @@ def time_tree(tree: Path) -> dict:
         "key_planes ascii k=21": lambda: K_.canonical_key_planes(seqs, ln, 21),
         "hash_tally ascii": lambda: K_.canonical_hash_tally(seqs, ln, K, 16),
     }
+    for what, t in hist_inputs.items():
+        calls[f"histogram16 {what}"] = (lambda t=t: K_.mxu_histogram16(t))
+    calls["compact_slots first pass"] = lambda: K_.mxu_compact_slots(*runs)
+    calls["compact_slots second pass"] = (
+        lambda: K_.mxu_compact_slots(*first_pass)
+    )
     for bl in SORT_BLOCKS:
         calls[f"block_sort {bl}"] = (lambda b=bl: K_.bitonic_block_sort(x, b))
     out = {}
@@ -175,7 +239,15 @@ def main(argv=None) -> int:
     ms = compare(args.against)
     card = _bench().card_line()
     print(card)
-    print(json.dumps({"card": card, "ms": ms}))
+    out = {"card": card, "ms": ms}
+    if args.against is not None:
+        mean = {label: {name: sum(v) / len(v) for name, v in by.items()}
+                for label, by in ms.items()}
+        out["ratio"] = {
+            name: mean["previous"][name] / t
+            for name, t in mean["this"].items() if name in mean["previous"]
+        }
+    print(json.dumps(out))
     return 0
 
 

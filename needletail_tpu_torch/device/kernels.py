@@ -481,9 +481,11 @@ def _histogram_lib() -> ctypes.CDLL:
     lib = _build.load("histogram16")
     fn = lib.nt_histogram16
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_longlong, p, p]
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, ll, p, p, ll, p]
         fn.restype = ctypes.c_int
+        lib.nt_histogram16_clusters.argtypes = [ll]
+        lib.nt_histogram16_clusters.restype = ll
     return lib
 
 
@@ -495,19 +497,32 @@ def mxu_histogram16(
     Keys < 0 are dropped; a key counts in bin ``key & 0xFFFF``.  With
     ``weight`` (same shape), only entries whose weight is > 0 count.  A
     call takes fewer than 2^31 keys, so no bin can wrap.  The name is the
-    JAX function's; on the GPU the count runs on integer atomics.
+    JAX function's; on the GPU two CTAs of a cluster each count one half
+    of the bins in shared memory.
     """
     keys = _histogram_keys(idx, weight)
     if not _on_cuda(keys):
         return histogram16_plain(keys)
     _check_contiguous(idx=keys)
-    counts = torch.zeros(BINS, dtype=torch.int32, device=keys.device)
+    counts = torch.empty(BINS, dtype=torch.int32, device=keys.device)
     if keys.numel() == 0:
-        return counts
-    fn = _histogram_lib().nt_histogram16
+        return counts.zero_()
+    lib = _histogram_lib()
     with torch.cuda.device(keys.device):
+        clusters = lib.nt_histogram16_clusters(keys.numel())
+        if clusters <= 0:
+            raise RuntimeError(
+                f"histogram16 kernel launch failed: CUDA error {-clusters}"
+            )
+        # one row of 65,536 bins per cluster, summed by the second kernel
+        partials = torch.empty(
+            clusters * BINS, dtype=torch.int32, device=keys.device
+        )
         stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = fn(keys.data_ptr(), keys.numel(), counts.data_ptr(), stream)
+        err = lib.nt_histogram16(
+            keys.data_ptr(), keys.numel(), counts.data_ptr(),
+            partials.data_ptr(), clusters, stream,
+        )
     if err != 0:
         raise RuntimeError(f"histogram16 kernel launch failed: CUDA error {err}")
     LAUNCHES["histogram16"] += 1
@@ -597,8 +612,8 @@ def mxu_compact_slots(
     input order, in its first slots, the rest 0; ``ok`` (a bool scalar on
     the input's device) is False iff some chunk had more than ``slots``
     flags, and then each slot j still holds the chunk's j-th flagged
-    entry.  The name is the JAX function's; on the GPU the compaction is a
-    ballot-and-prefix-count scatter.
+    entry.  The name is the JAX function's; on the GPU one warp compacts
+    a chunk, its ranks from ballots.
     """
     hi, lo, counts, rows = _compact_inputs(hi, lo, counts, chunk, slots)
     if not _on_cuda(hi, lo, counts):

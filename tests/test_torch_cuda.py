@@ -348,3 +348,36 @@ def test_cuda_block_sort_merge_passes(cuda_device, block):
         got = tk.bitonic_block_sort(x, block)
         assert torch.equal(x, before)
         assert torch.equal(got, tk.block_sort_plain(x, block))
+
+
+@pytest.mark.parametrize("offset,n", [
+    (1, 1_000_000), (2, 4 * 5_000 + 1), (3, 4 * 777 + 3), (0, 4 * 9_999 + 2),
+    (1, 3), (0, 1),
+])
+def test_cuda_histogram_views_and_ragged_lengths(cuda_device, offset, n):
+    """A view off a 16-byte boundary (scalar head), a length that is no
+    multiple of 4 (scalar tail), and lengths shorter than one step."""
+    rng = np.random.default_rng(offset * 7 + n)
+    flat = torch.from_numpy(
+        rng.integers(-(1 << 20), 1 << 20, n + 4, dtype=np.int64).astype(np.int32)
+    ).to(cuda_device)
+    keys = flat[offset:offset + n]
+    assert torch.equal(tk.mxu_histogram16(keys), tk.histogram16_plain(keys))
+
+
+@pytest.mark.parametrize("chunk,slots", [(32, 8), (96, 16), (2048, 256), (128, 200)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_compact_slots_chunks_and_views(cuda_device, chunk, slots, offset):
+    """Chunks off the 128-lane segments and of several 512-lane tiles,
+    slots past the chunk, and counts that start off a 16-byte boundary."""
+    rng = np.random.default_rng(chunk + offset)
+    n = 50_003
+    planes = rng.integers(-(1 << 31), 1 << 31, (3, n + 1), dtype=np.int64)
+    planes[2] = np.where(rng.random(n + 1) < 0.1, rng.integers(1, 9, n + 1), 0)
+    hi, lo, c = torch.from_numpy(planes.astype(np.int32)).to(cuda_device)
+    hi, lo, c = (t[offset:offset + n] for t in (hi, lo, c))
+    for args in ((hi, lo, c), (None, lo, c)):
+        got = tk.mxu_compact_slots(*args, chunk=chunk, slots=slots)
+        want = tk.compact_slots_plain(*args, chunk=chunk, slots=slots)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
