@@ -22,7 +22,9 @@ Phases, each fatal on failure:
    past the chunk, a stream shorter than a chunk and counts off a 16-byte
    boundary; the block sort at spans from 128 to 2^20 lanes on
    random, top-bit, all-equal, few-distinct, sorted and reversed keys,
-   its input unchanged;
+   its input unchanged; the ASCII key planes also at every width a
+   length-bucketed stream gives them (128 to 4096 and a dynamic 8064),
+   over quality-masked reads, at k=21 and 31;
 3. the hash path at full size: ``hash_count_file`` over the golden FASTQ
    written 256 times (64M bases) at batch 131072 x 128, through both of
    its kernels (launch counts read around this run), to the x256 goldens
@@ -54,19 +56,36 @@ Phases, each fatal on failure:
 9. multi-k at full width: ``multi_k_count_file`` over the 64M bases at
    k = 4, 21, 31 to 256 x the plain one-copy spectra, its bases/s, and an
    interrupted ``multik`` checkpoint and its resume at the 16-copy depth;
-10. the block-sort experiment (``needletail_tpu_torch.bench.exp_block_sort``):
+10. the quality path: ``count_file(k=21, quality_cutoff=20)`` and
+   ``multi_k_count_file((4, 21, 31), quality_cutoff=20)`` over the 64M
+   bases (ASCII with the quality plane; the key-plane kernel over the
+   masked bytes, k=4 through the histogram) to 256 x the plain one-copy
+   results, their bases/s and one metered run's stages; k=9 dense under
+   quality (the histogram kernel) at the 16-copy depth;
+11. the filter: ``quality_filter_file(min_mean_quality=30)`` over the 64M
+   bases, 512,000 reads in, 256 x the one-copy kept count, the output's
+   sha256 equal to that of 256 one-copy outputs, and its bases/s;
+12. minimizers: ``minimizer_spectrum_file(k=21, w=11)`` over the 64M
+   bases, packed and ASCII, through the key-plane kernel to 256 x the
+   plain one-copy sketch, and the bases/s of each;
+13. bucketed: ``count_file(k=31, bucketed=True, quality_cutoff=20)`` over
+   a seeded mixed-length FASTQ (reads of 36-150 bp and 2-8 kbp) written
+   256 times, equal to the flat run on the card and to 256 x the plain
+   one-copy result, the widths it met and the bases/s of both;
+14. the block-sort experiment (``needletail_tpu_torch.bench.exp_block_sort``):
    checked against the plain sort, then timed beside its plain version and
    ``torch.sort``; these are the block sort's times in the kernels line;
-11. each other kernel's time beside its plain version's, its bound and,
+15. each other kernel's time beside its plain version's, its bound and,
    where one PyTorch call computes the same function, that call's, at the
    main paths' shapes (CUDA events around calls queued behind a spin, so
    the card's time and not the host's), the histogram also on one hot key
    and on 90% invalid keys, the compaction also on its second cascade
    pass, and the times of the flush's sort and of its whole run count
    (``unique_counts``: the sort, run heads and lengths);
-12. stop every process the run started (the framing pool's resource
+16. stop every process the run started (the framing pool's resource
    tracker) and fail if a child is still alive; then a
-   ``{"kernels": [...]}`` line and the last line
+   ``{"kernels": [...]}`` line (``launches_by_path`` counts each kernel's
+   launches on every path above that runs it) and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or the script
@@ -127,6 +146,23 @@ GENOME_BATCH_TILES = 640  # 611 tiles: one block, 5,242,880 key lanes
 GOLD_GENOME = (4_999_970, 4_999_970, 1_373_307_442, 100_106_330)
 SMALL_GENOME_BASES = 400_000
 MULTI_KS = (4, 21, 31)
+
+# the quality, filter, minimizer and bucketed paths; per-copy goldens of
+# PRJNA271013_head.fq from the JAX package's CLI on the CPU: Q20 masks
+# 7.2% of its bases
+QUALITY_CUTOFF = 20
+GOLD_Q20_K21 = (146_651, 116_744)  # canonical 21-mers, distinct
+FILTER_MIN_QUALITY = 30
+GOLD_FILTER = (2_000, 1_732)  # reads in, reads kept
+MINIMIZER_K, MINIMIZER_W = 21, 11  # minimap2's short-read preset (-x sr)
+GOLD_MINIMIZERS = (28_606, 189_960)  # distinct minimizers, winning windows
+BUCKET_K = 31
+BUCKET_BATCH = 8192
+MIXED_SEED = 7  # ~1,600 reads of 36-150 bp and ~20 of 2-8 kbp a copy
+# the ASCII key-plane kernel at every width a bucketed stream gives it:
+# the default buckets and a dynamic width (a multiple of 128, no power of 2)
+BUCKET_WIDTHS = {128: 8192, 256: 4096, 512: 2048, 1024: 1024, 2048: 512,
+                 4096: 256, 8064: 128}
 
 # published H100 SXM peaks: HBM bytes/s, and
 # operations/s outside the tensor cores (the float32 rate; every kernel
@@ -269,6 +305,39 @@ def check_window_kernels(errors: Errors, rng) -> int:
             plane_parts,
         )
         cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def check_bucket_widths(errors: Errors, rng) -> int:
+    """The ASCII planes mode at every bucket width, k=21 and 31, over
+    quality-masked reads: the input of the quality and bucketed paths."""
+    import numpy as np
+    import torch
+
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.ops import quality_mask
+    from needletail_tpu_torch.utils.synth import random_reads
+
+    dev = torch.device("cuda")
+    cases = 0
+    for width, rows in BUCKET_WIDTHS.items():
+        seqs, lengths = random_reads(rng, rows, width, dirty_frac=0.3)
+        quals = rng.integers(33, 75, seqs.shape).astype(np.uint8)
+        s = quality_mask(torch.from_numpy(seqs).to(dev),
+                         torch.from_numpy(quals).to(dev),
+                         33 + QUALITY_CUTOFF)
+        ln = torch.from_numpy(lengths).to(dev)
+        for k in (21, BUCKET_K):
+            for normalized in (True, False):
+                errors.hold_all(
+                    "key_planes",
+                    f"masked ascii L={width} k={k} normalized={normalized}",
+                    K_.canonical_key_planes(s, ln, k, normalized),
+                    K_.canonical_key_planes_plain(s, ln, k, normalized),
+                    ("hi", "lo", "total", "fwd"),
+                )
+                cases += 1
     torch.cuda.synchronize()
     return cases
 
@@ -1309,6 +1378,240 @@ def run_multi_k(big: Path, small: Path, tmp: Path, card: str) -> dict:
             "bases_per_s": COPIES * GOLD_BASES / best}
 
 
+def launched(what: str, launches: dict, *names) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{what} launched no {name}")
+
+
+def best_of_2(run, check) -> float:
+    """Seconds of the faster of two more runs of ``run()``, each result
+    held by ``check``."""
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        result = run()
+        best = min(best, time.perf_counter() - t0)
+        check(result)
+    return best
+
+
+def run_quality_path(big: Path, small: Path, card: str) -> dict:
+    """Phase 10: ``count_file(k=21, quality_cutoff=20)`` and
+    ``multi_k_count_file((4, 21, 31), quality_cutoff=20)`` over the 64M
+    bases to 256 x the plain one-copy results (ASCII with the quality
+    plane: the key-plane kernel over the masked bytes), their bases/s and
+    the metered stages of one run; k=9 dense (the histogram kernel) at
+    the 16-copy depth."""
+    from needletail_tpu_torch.device import count as C_
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.pipeline import (
+        count_file, multi_k_count_file,
+    )
+    from needletail_tpu_torch.utils.profiling import ThroughputMeter
+
+    kw = dict(batch_size=BATCH, max_len=MAX_LEN, sparse_format="arrays",
+              quality_cutoff=QUALITY_CUTOFF)
+    out = {"launches": {}}
+    ref = count_file(str(FQ), K, device="cpu", host_workers=1, **kw)
+    if (int(ref[1][1].sum()), len(ref[1][0])) != GOLD_Q20_K21:
+        raise AssertionError(f"plain one-copy Q20 k={K}: "
+                             f"{int(ref[1][1].sum())}, {len(ref[1][0])}")
+    K_.reset_launches()
+    C_.reset_flush_routes()
+    got = count_file(str(big), K, device="cuda", **kw)
+    launches = dict(K_.LAUNCHES)
+    flushes = {r: n for r, n in C_.FLUSH_ROUTES.items() if n}
+    expect_spectrum(got, COPIES, ref, "quality path k=21")
+    launched("quality path k=21", launches, "key_planes", "compact_slots")
+    out["launches"]["k21"] = launches
+    log(f"quality path k={K} Q{QUALITY_CUTOFF}: {got[0]} bases, "
+        f"{int(got[1][1].sum())} k-mers, {len(got[1][0])} distinct; "
+        f"launches {launches}; flushes {flushes}")
+    run = lambda: count_file(str(big), K, device="cuda", **kw)  # noqa: E731
+    out["best_s"] = best_of_2(
+        run, lambda r: expect_spectrum(r, COPIES, ref, "timed quality path"))
+    out["bases_per_s"] = got[0] / out["best_s"]
+    log(f"quality e2e k={K}: best of 2 {out['best_s']:.4f} s = "
+        f"{out['bases_per_s']:.6e} bases/s ({card})")
+    meter = ThroughputMeter()
+    expect_spectrum(count_file(str(big), K, device="cuda", meter=meter, **kw),
+                    COPIES, ref, "metered quality path")
+    log("quality metered stages:\n" + meter.report())
+    log("quality metered stages json: " + json.dumps(meter.as_dict()))
+    del got
+
+    one9 = count_file(str(FQ), 9, device="cpu", host_workers=1, **kw)
+    K_.reset_launches()
+    got = count_file(str(small), 9, device="cuda", **kw)
+    launches = dict(K_.LAUNCHES)
+    expect_spectrum(got, SMALL_COPIES, one9, "quality k=9 dense")
+    launched("quality k=9 dense", launches, "histogram16")
+    out["launches"]["k9"] = launches
+    log(f"quality k=9 dense: equal to {SMALL_COPIES} x the plain one-copy "
+        f"table; launches {launches}")
+
+    ref = multi_k_count_file(str(FQ), MULTI_KS, device="cpu", host_workers=1,
+                             **kw)
+    K_.reset_launches()
+    got = multi_k_count_file(str(big), MULTI_KS, device="cuda", **kw)
+    launches = dict(K_.LAUNCHES)
+    expect_multi(got, COPIES, ref, "multi-k quality path")
+    launched("multi-k quality path", launches, "histogram16", "key_planes")
+    out["launches"]["multi-k"] = launches
+    run = lambda: multi_k_count_file(  # noqa: E731
+        str(big), MULTI_KS, device="cuda", **kw)
+    out["multi_k_best_s"] = best_of_2(
+        run, lambda r: expect_multi(r, COPIES, ref, "timed multi-k quality"))
+    out["multi_k_bases_per_s"] = got[0] / out["multi_k_best_s"]
+    log(f"multi-k quality path ks={MULTI_KS}: equal to {COPIES} x the plain "
+        f"one-copy spectra; launches {launches}; best of 2 "
+        f"{out['multi_k_best_s']:.4f} s = {out['multi_k_bases_per_s']:.6e} "
+        f"bases/s ({card})")
+    return out
+
+
+def run_filter_path(big: Path, tmp: Path, card: str) -> dict:
+    """Phase 11: ``quality_filter_file(min_mean_quality=30)`` over the
+    64M bases: 512,000 reads in, 256 x the one-copy kept count, and the
+    output's sha256 that of 256 one-copy outputs end to end."""
+    import hashlib
+
+    from needletail_tpu_torch.device.pipeline import quality_filter_file
+
+    one = tmp / "kept_x1.fq"
+    if quality_filter_file(str(FQ), str(one), FILTER_MIN_QUALITY,
+                           device="cpu") != GOLD_FILTER:
+        raise AssertionError("plain one-copy filter missed its golden")
+    want_sha = hashlib.sha256(one.read_bytes() * COPIES).hexdigest()
+    want = (GOLD_FILTER[0] * COPIES, GOLD_FILTER[1] * COPIES)
+    kept = tmp / "kept_x256.fq"
+
+    def run():
+        return quality_filter_file(str(big), str(kept), FILTER_MIN_QUALITY,
+                                   device="cuda")
+
+    def check(result):
+        if result != want:
+            raise AssertionError(f"filter: {result} != {want}")
+        sha = hashlib.sha256(kept.read_bytes()).hexdigest()
+        if sha != want_sha:
+            raise AssertionError(f"filter output sha256 {sha} != {want_sha}")
+
+    check(run())
+    best = best_of_2(run, check)
+    log(f"filter Q{FILTER_MIN_QUALITY}: {want[1]} of {want[0]} reads kept, "
+        f"sha256 {want_sha} ({COPIES} one-copy outputs); best of 2 {best:.4f} s "
+        f"= {COPIES * GOLD_BASES / best:.6e} bases/s ({card})")
+    kept.unlink()
+    return {"best_s": best, "bases_per_s": COPIES * GOLD_BASES / best}
+
+
+def run_minimizer_path(big: Path, card: str) -> dict:
+    """Phase 12: ``minimizer_spectrum_file(k=21, w=11)`` over the 64M
+    bases, packed and ASCII, to 256 x the plain one-copy sketch, through
+    the key-plane kernel; bases/s of each."""
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.pipeline import minimizer_spectrum_file
+
+    kw = dict(batch_size=BATCH, max_len=MAX_LEN)
+    ref = minimizer_spectrum_file(str(FQ), MINIMIZER_K, MINIMIZER_W,
+                                  device="cpu", host_workers=1, **kw)
+    if (len(ref[1][0]), int(ref[1][1].sum())) != GOLD_MINIMIZERS:
+        raise AssertionError(f"plain one-copy sketch: {len(ref[1][0])}, "
+                             f"{int(ref[1][1].sum())}")
+    out = {}
+    for packed in (True, False):
+        name = "packed" if packed else "ascii"
+
+        def run():
+            return minimizer_spectrum_file(str(big), MINIMIZER_K, MINIMIZER_W,
+                                           packed=packed, device="cuda", **kw)
+
+        def check(result):
+            expect_spectrum(result, COPIES, ref, f"minimizers {name}")
+
+        K_.reset_launches()
+        check(run())
+        launches = dict(K_.LAUNCHES)
+        launched(f"minimizers {name}", launches, "key_planes")
+        best = best_of_2(run, check)
+        out[name] = {"launches": launches, "best_s": best,
+                     "bases_per_s": COPIES * GOLD_BASES / best}
+        log(f"minimizers ({MINIMIZER_W},{MINIMIZER_K}) {name}: equal to "
+            f"{COPIES} x the one-copy sketch ({GOLD_MINIMIZERS[0]} distinct, "
+            f"{GOLD_MINIMIZERS[1]} windows a copy); launches {launches}; best "
+            f"of 2 {best:.4f} s = {COPIES * GOLD_BASES / best:.6e} bases/s "
+            f"({card})")
+    return out
+
+
+def run_bucketed_path(tmp: Path, card: str) -> dict:
+    """Phase 13: ``count_file(k=31, bucketed=True, quality_cutoff=20)``
+    over a seeded mixed-length FASTQ written 256 times (~64M bases) equal
+    to the flat run on the card and to 256 x the plain one-copy result;
+    the widths it met, bases/s of both, and the metered stages of the
+    first bucketed run and of the flat run."""
+    from needletail_tpu_torch.device import count as C_
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.pipeline import count_file
+    from needletail_tpu_torch.io.bucketed import bucketed_read_batches
+    from needletail_tpu_torch.utils.profiling import ThroughputMeter
+    from needletail_tpu_torch.utils.synth import mixed_length_fastq
+
+    one = tmp / "mixed_x1.fq"
+    one.write_bytes(mixed_length_fastq(MIXED_SEED))
+    big = tmp / "mixed_x256.fq"
+    write_copies(big, COPIES, one)
+    widths = sorted({b.max_len for b in bucketed_read_batches(
+        str(big), batch_size=BUCKET_BATCH)})
+    if not ({128, 256, 4096} <= set(widths) and widths[-1] > 4096):
+        raise AssertionError(f"bucketed widths {widths}: 128, 256, 4096 and "
+                             "a dynamic one expected")
+    kw = dict(batch_size=BUCKET_BATCH, sparse_format="arrays",
+              quality_cutoff=QUALITY_CUTOFF)
+    ref = count_file(str(one), BUCKET_K, device="cpu", bucketed=True, **kw)
+    flat_ref = count_file(str(one), BUCKET_K, device="cpu", host_workers=1,
+                          **kw)
+    expect_spectrum(flat_ref, 1, ref, "plain one-copy flat vs bucketed")
+
+    def run(meter=None):
+        return count_file(str(big), BUCKET_K, device="cuda", bucketed=True,
+                          meter=meter, **kw)
+
+    def check(result):
+        expect_spectrum(result, COPIES, ref, "bucketed path")
+
+    K_.reset_launches()
+    C_.reset_flush_routes()
+    meter = ThroughputMeter()
+    got = run(meter)
+    launches = dict(K_.LAUNCHES)
+    check(got)
+    launched("bucketed path", launches, "key_planes", "compact_slots")
+    log(f"bucketed flushes {dict(C_.FLUSH_ROUTES)}; metered stages json: "
+        + json.dumps(meter.as_dict()))
+    best = best_of_2(run, check)
+    K_.reset_launches()
+    C_.reset_flush_routes()
+    meter = ThroughputMeter()
+    t0 = time.perf_counter()
+    flat = count_file(str(big), BUCKET_K, device="cuda", meter=meter, **kw)
+    flat_s = time.perf_counter() - t0
+    expect_spectrum(flat, 1, got, "flat run on the card")
+    log(f"flat run: launches {dict(K_.LAUNCHES)}; flushes "
+        f"{dict(C_.FLUSH_ROUTES)}; metered stages json: "
+        + json.dumps(meter.as_dict()))
+    log(f"bucketed k={BUCKET_K} Q{QUALITY_CUTOFF}: {got[0]} bases, "
+        f"{int(got[1][1].sum())} k-mers, {len(got[1][0])} distinct; widths "
+        f"{widths}; launches {launches}; best of 2 {best:.4f} s = "
+        f"{got[0] / best:.6e} bases/s; the flat run equal, {flat_s:.4f} s = "
+        f"{got[0] / flat_s:.6e} bases/s ({card})")
+    return {"launches": launches, "best_s": best,
+            "bases_per_s": got[0] / best, "flat_s": flat_s, "widths": widths,
+            "bases": got[0]}
+
+
 def kernel_entry(name, source, replaces, launches, worst, t) -> dict:
     ms, by = t["bound"]
     entry = {
@@ -1398,8 +1701,10 @@ def run() -> int:
     n_hist = check_histogram(errors, rng)
     n_compact = check_compact_slots(errors, rng)
     n_sort = check_block_sort(errors, rng)
+    n_buckets = check_bucket_widths(errors, rng)
     log(f"kernel checks: hash_keys and key_planes {n_window} cases each "
-        f"(hash_tally the ASCII ones), histogram16 {n_hist} cases, "
+        f"(hash_tally the ASCII ones), key_planes {n_buckets} more at the "
+        f"bucket widths {list(BUCKET_WIDTHS)}, histogram16 {n_hist} cases, "
         f"compact_slots {n_compact} cases, block_sort {n_sort} cases equal "
         f"to the plain versions at tolerance 0 in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1507,19 +1812,25 @@ def run() -> int:
         # ---- 9. multi-k at full width -----------------------------------
         multi = run_multi_k(big, small, tmp, card)
 
-        # ---- 10. the block-sort experiment ------------------------------
+        # ---- 10-13. quality, filter, minimizers, bucketed ---------------
+        quality = run_quality_path(big, small, card)
+        filtered = run_filter_path(big, tmp, card)
+        minimizers = run_minimizer_path(big, card)
+        bucketed = run_bucketed_path(tmp, card)
+
+        # ---- 14. the block-sort experiment ------------------------------
         K_.reset_launches()
         sort_exp = exp_block_sort.run(log=log)
         sort_launches = K_.LAUNCHES["block_sort"]
         if sort_launches <= 0:
             raise AssertionError("the block-sort experiment launched no sort")
 
-        # ---- 11. kernel times at the main paths' shapes ----------------
+        # ---- 15. kernel times at the main paths' shapes ----------------
         times = time_kernels(errors, str(big))
         times["block_sort"] = block_sort_times(errors, sort_exp)
         log("kernel times: " + json.dumps(times))
 
-    # ---- 12. nothing this run started outlives it ---------------------
+    # ---- 16. nothing this run started outlives it ---------------------
     running = child_processes()
     log(f"children before the stop: {running or 'none'}")
     left = stop_children()
@@ -1566,20 +1877,34 @@ def run() -> int:
     kernels[0]["also_replaces"] = f"{pk}:301"
     kernels[2]["also_replaces"] = f"{pk}:324"
     # launches on the other paths that run a kernel
+    new_paths = {
+        "quality k=21": quality["launches"]["k21"],
+        "quality k=9 dense": quality["launches"]["k9"],
+        "multi-k quality": quality["launches"]["multi-k"],
+        "minimizers packed": minimizers["packed"]["launches"],
+        "minimizers ascii": minimizers["ascii"]["launches"],
+        "bucketed": bucketed["launches"],
+    }
     kernels[1]["launches_by_path"] = {
         "hash": launches["histogram16"],
         "tally": tally_launches["histogram16"],
         "multi-k": multi["launches"]["histogram16"],
+        **{p: n["histogram16"] for p, n in new_paths.items()
+           if n["histogram16"]},
     }
     kernels[2]["launches_by_path"] = {
         "exact k=21": exact[K]["launches"]["key_planes"],
         "genome": genome["launches"]["key_planes"],
         "multi-k": multi["launches"]["key_planes"],
+        **{p: n["key_planes"] for p, n in new_paths.items()
+           if n["key_planes"]},
     }
     kernels[3]["launches_by_path"] = {
         "exact k=21": exact[K]["launches"]["compact_slots"],
         "genome": genome["launches"]["compact_slots"],
         "multi-k": multi["launches"]["compact_slots"],
+        **{p: n["compact_slots"] for p, n in new_paths.items()
+           if n["compact_slots"]},
     }
     for entry in kernels:
         entry["card"] = name
@@ -1596,6 +1921,18 @@ def run() -> int:
             "flush_runs_ms", "lanes", "flushes")},
         "multi_k": {key: multi[key] for key in ("bases_per_s", "best_s",
                                                 "flushes")},
+        "card": name, "power_limit": power,
+    }))
+    log("quality, filter, minimizer and bucketed e2e: " + json.dumps({
+        "quality_k21": {"bases_per_s": quality["bases_per_s"],
+                        "best_s": quality["best_s"]},
+        "multi_k_quality": {"bases_per_s": quality["multi_k_bases_per_s"],
+                            "best_s": quality["multi_k_best_s"]},
+        "filter": filtered,
+        "minimizers": {p: {key: v[key] for key in ("bases_per_s", "best_s")}
+                       for p, v in minimizers.items()},
+        "bucketed": {key: bucketed[key] for key in (
+            "bases_per_s", "best_s", "flat_s", "widths", "bases")},
         "card": name, "power_limit": power,
     }))
     log(json.dumps({"kernels": kernels}))

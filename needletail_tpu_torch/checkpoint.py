@@ -186,10 +186,13 @@ def prepare_checkpoint_stream(
     checkpoint_path=None,
     resume_from=None,
     host_workers=None,
+    bucketed: bool = False,
     validate=None,
     **meta_kwargs,
 ) -> "tuple[bool, Optional[dict]]":
-    """Validate the checkpoint flags and load any resume checkpoint.
+    """Validate the checkpoint flags (bucketed batching, whose batches
+    carry no record-aligned offsets, is refused) and load any resume
+    checkpoint.
 
     Returns ``(active, ck)``: whether checkpoint mode is on (the driver
     then frames through :func:`checkpoint_source`), and the loaded resume
@@ -202,6 +205,11 @@ def prepare_checkpoint_stream(
     )
     if not active:
         return False, None
+    if bucketed:
+        raise ValueError(
+            "checkpoint/resume needs the single-shape stream, not "
+            "bucketed batching"
+        )
     validate_checkpoint_args(checkpoint_every, checkpoint_path, host_workers)
     ck = None
     if resume_from is not None:

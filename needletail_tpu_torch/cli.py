@@ -3,11 +3,15 @@
     python -m needletail_tpu_torch.cli hash-count reads.fq -k 21
     python -m needletail_tpu_torch.cli count reads.fq -k 31 --top 10
     python -m needletail_tpu_torch.cli count reads.fq -k 4,21,31
+    python -m needletail_tpu_torch.cli count reads.fq -k 31 --bucketed --quality-cutoff 20
+    python -m needletail_tpu_torch.cli minimizers reads.fq -k 21 -w 11
+    python -m needletail_tpu_torch.cli filter reads.fq kept.fq --min-quality 30
     python -m needletail_tpu_torch.cli spectrum genome.fa -k 31 -o spec.npz
 
-print what ``needletail-tpu hash-count``, ``count`` and ``spectrum``
-print.  ``--sharded`` and, for ``count``, ``--bucketed`` and
-``--quality-cutoff`` are not ported yet.
+print what ``needletail-tpu hash-count``, ``count``, ``minimizers``,
+``filter`` and ``spectrum`` print.  ``--sharded`` is not ported yet (the
+``parallel/`` item of ROADMAP.md), nor are the host-only commands
+``stats``, ``bgzip`` and ``convert``.
 """
 
 from __future__ import annotations
@@ -128,7 +132,9 @@ def _cmd_count(args) -> int:
         _paths(args),
         k=ks if len(ks) > 1 else ks[0],
         batch_size=args.batch_size,
+        bucketed=args.bucketed,
         sparse_format="arrays",
+        quality_cutoff=args.quality_cutoff,
         host_workers=args.host_workers,
         checkpoint_every=args.checkpoint_every,
         checkpoint_path=args.checkpoint,
@@ -177,6 +183,49 @@ def _cmd_spectrum(args) -> int:
         _write_dump(args.dump, [(keys, counts, args.k)])
     if args.top:
         _top_kmers(keys, counts, args.k, args.top)
+    return 0
+
+
+def _cmd_minimizers(args) -> int:
+    import numpy as np
+
+    from .device.pipeline import minimizer_spectrum_file
+
+    meter = _profile_meter(args)
+    n_bases, (keys, counts) = minimizer_spectrum_file(
+        args.path, k=args.k, w=args.w, batch_size=args.batch_size,
+        meter=meter,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_path=args.checkpoint,
+        resume_from=args.resume_from,
+        device=args.device,
+    )
+    if meter is not None:
+        print(meter.report(), file=sys.stderr)
+    print(
+        f"# {n_bases} bases, {len(keys)} distinct ({args.w},{args.k})-minimizers, "
+        f"{int(counts.sum())} winning windows",
+        file=sys.stderr,
+    )
+    if args.output:
+        np.savez_compressed(args.output, keys=keys, counts=counts, k=args.k,
+                            w=args.w)
+        print(f"# spectrum written to {args.output}", file=sys.stderr)
+    if args.dump:
+        _write_dump(args.dump, [(keys, counts, args.k)])
+    if args.top:
+        _top_kmers(keys, counts, args.k, args.top)
+    return 0
+
+
+def _cmd_filter(args) -> int:
+    from .device.pipeline import quality_filter_file
+
+    n_in, n_kept = quality_filter_file(
+        args.path, args.output, args.min_quality, batch_size=args.batch_size,
+        device=args.device,
+    )
+    print(json.dumps({"reads_in": n_in, "reads_kept": n_kept}))
     return 0
 
 
@@ -244,6 +293,10 @@ def _add_common_flags(p, batch_size: int, k_help: Optional[str] = None) -> None:
     p.add_argument("--host-workers", type=int, default=None,
                    help="framing processes (default: auto from CPU count)")
     _add_device_flag(p)
+    _add_stream_flags(p)
+
+
+def _add_stream_flags(p) -> None:
     p.add_argument("--profile", action="store_true",
                    help="print a per-stage throughput breakdown (frame, "
                         "h2d, wait, dispatch, drain) to stderr")
@@ -266,6 +319,11 @@ def main(argv=None) -> int:
         p, batch_size=4096,
         k_help="k, or a comma list (e.g. 4,21,31) counted in ONE pass",
     )
+    p.add_argument("--bucketed", action="store_true",
+                   help="length-bucketed batching")
+    p.add_argument("--quality-cutoff", type=int, default=None,
+                   help="mask bases below this Phred score before counting "
+                        "(FASTQ)")
     _add_output_flags(p, "spectrum")
     p.set_defaults(fn=_cmd_count)
 
@@ -274,6 +332,25 @@ def main(argv=None) -> int:
     p.add_argument("--table-bits", type=int, default=16)
     p.add_argument("-o", "--output", help="write table .npz")
     p.set_defaults(fn=_cmd_hash_count)
+
+    p = sub.add_parser("filter", help="drop reads below a mean Phred score")
+    p.add_argument("path")
+    p.add_argument("output")
+    p.add_argument("--min-quality", type=float, required=True)
+    p.add_argument("--batch-size", type=int, default=4096)
+    _add_device_flag(p)
+    p.set_defaults(fn=_cmd_filter)
+
+    p = sub.add_parser("minimizers", help="(w,k) minimizer spectrum")
+    p.add_argument("path")
+    p.add_argument("-k", type=int, required=True)
+    p.add_argument("-w", type=int, required=True,
+                   help="windows per sketch position")
+    p.add_argument("--batch-size", type=int, default=4096)
+    _add_device_flag(p)
+    _add_stream_flags(p)
+    _add_output_flags(p, "spectrum")
+    p.set_defaults(fn=_cmd_minimizers)
 
     p = sub.add_parser("spectrum", help="whole-genome spectrum via halo tiling")
     p.add_argument("path")

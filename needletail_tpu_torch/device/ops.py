@@ -1,20 +1,30 @@
-"""Transport ops of the hash-count path: the one-buffer wire back into its
-planes, validity planes, and the 2-bit encode.
+"""Elementwise device ops over padded ``[B, L]`` uint8 batches, the
+one-buffer wire back into its planes, validity planes, and the 2-bit
+encode.
 
 Counterpart of ``needletail_tpu/device/ops.py``; every function returns
-what its JAX twin returns on the same input.  Lengths and row indices are
-composed from bytes in int32, never through ``uint16``/``uint32`` tensors,
-whose shifts PyTorch does not implement on the CPU.  Results stay on the
-device of the input.
+what its JAX twin returns on the same input.  The byte ops gather from the
+host's 256-entry tables (:mod:`needletail_tpu_torch.sequence`), so device
+and host agree byte for byte.  Lengths and row indices are composed from
+bytes in int32, never through ``uint16``/``uint32`` tensors, whose shifts
+PyTorch does not implement on the CPU.  Results stay on the device of the
+input.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
+from .. import sequence as _hostseq
+
 __all__ = [
+    "normalize",
+    "complement",
+    "reverse_complement",
+    "quality_mask",
+    "decode_phred",
     "unwire",
     "unpack_codes",
     "expand_vrows",
@@ -23,6 +33,65 @@ __all__ = [
 ]
 
 _INVALID = 255
+
+
+def _lut(table, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(table).to(like.device)
+
+
+def normalize(
+    seqs: torch.Tensor, iupac: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalized bytes (ref sequence.rs:19-62) and a keep mask.
+
+    Whitespace maps to 0 with ``keep`` False (the host normalize drops
+    it); padding (byte 0) maps to 'N' with ``keep`` True, so mask by the
+    lengths separately.
+    """
+    byte_map, _ = _hostseq.normalize_luts(iupac)
+    out = _lut(byte_map, seqs)[seqs.to(torch.int64)]
+    return out, out != 0
+
+
+def complement(seqs: torch.Tensor) -> torch.Tensor:
+    """Per-base IUPAC complement (ref sequence.rs:68-105)."""
+    return _lut(_hostseq.COMPLEMENT_LUT, seqs)[seqs.to(torch.int64)]
+
+
+def reverse_complement(seqs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Length-aware reverse complement of each row (ref
+    sequence.rs:202-208): row i's first ``lengths[i]`` lanes hold it and
+    the rest is zero."""
+    l = seqs.shape[1]
+    comp = complement(seqs)
+    pos = torch.arange(l, dtype=torch.int64, device=seqs.device)[None, :]
+    src = lengths.to(torch.int64)[:, None] - 1 - pos
+    flipped = torch.gather(comp, 1, src.clamp(0, l - 1))
+    return torch.where(src >= 0, flipped, 0).to(torch.uint8)
+
+
+def quality_mask(
+    seqs: torch.Tensor, quals: torch.Tensor, score: Union[int, torch.Tensor]
+) -> torch.Tensor:
+    """Bases whose quality byte is below ``score`` become 'N' (ref
+    sequence.rs:280-296).
+
+    The compare is in int32, as JAX promotes ``uint8 < int32``: PyTorch
+    would wrap a Python int into uint8 (``q < 300`` as ``q < 44``), so a
+    threshold past 255 or below 0 keeps its meaning here.
+    """
+    return torch.where(quals.to(torch.int32) < score, ord("N"), seqs).to(
+        torch.uint8
+    )
+
+
+def decode_phred(
+    quals: torch.Tensor, offset: int = 33
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phred scores and an ok mask: bytes below ``offset`` are flagged
+    (score 0) instead of raising (ref quality.rs:15-28)."""
+    ok = quals >= offset
+    return (quals - offset) * ok.to(torch.uint8), ok
 
 
 def unpack_codes(

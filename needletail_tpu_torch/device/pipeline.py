@@ -1,6 +1,6 @@
 """File-level drivers of the port.
 
-Counterpart of ``needletail_tpu/device/pipeline.py``.  Three paths so far:
+Counterpart of ``needletail_tpu/device/pipeline.py``.  The paths:
 
   * the hash count, :func:`hash_count_file`: FASTX file -> host framer ->
     one-buffer wire -> device ``unwire`` -> canonical k-mer hash keys ->
@@ -12,7 +12,16 @@ Counterpart of ``needletail_tpu/device/pipeline.py``.  Three paths so far:
     end for k <= 12);
   * several k values in one pass, :func:`multi_k_count_file`: each k
     routed as :func:`count_file` routes it, one unpack per batch shared
-    by every k that builds windows.
+    by every k that builds windows;
+  * the (w, k) minimizer sketch, :func:`minimizer_spectrum_file`: key
+    planes, then the minimum of each run of w windows, counted as the
+    exact spectrum counts its keys;
+  * the mean-quality read filter, :func:`quality_filter_file`.
+
+Both counting drivers take ``quality_cutoff`` (bases below it masked to
+'N' on the device before any window is built; ASCII transport with the
+quality plane beside it) and :func:`count_file` takes ``bucketed`` (reads
+grouped by length, each batch as wide as its bucket).
 
 The device steps are plain functions on tensors; PyTorch runs them
 eagerly, so there is no per-configuration compile to cache.
@@ -33,7 +42,9 @@ from ..encoding import ENCODE_RAW_LUT
 from . import count as _count
 from . import kernels as _kernels
 from . import kmers as _kmers
-from .ops import _compose_le, encode_2bit, resolve_vbits, unpack_codes, unwire
+from .ops import (
+    _compose_le, encode_2bit, quality_mask, resolve_vbits, unpack_codes, unwire,
+)
 
 __all__ = [
     "hash_count_file",
@@ -45,6 +56,8 @@ __all__ = [
     "base_count",
     "pack_target",
     "readme_pipeline",
+    "minimizer_spectrum_file",
+    "quality_filter_file",
 ]
 
 
@@ -75,22 +88,28 @@ def _uploader(dev: torch.device):
 
 def _batch_source(
     path, batch_size, max_len, host_workers, spill_dir, packed, normalized,
-    ckpt_mode, start_offset, checkpoint_every,
+    ckpt_mode, start_offset, checkpoint_every, with_quals=False,
+    bucketed=False,
 ):
-    """A driver's framed batches: one offset-reporting stream from
+    """A driver's framed batches: length-bucketed ones (single process,
+    never in checkpoint mode), one offset-reporting stream from
     ``start_offset`` in checkpoint mode, else the multi-worker front.
-    Neither driver reads qualities."""
+    ``with_quals`` frames the quality plane too (FASTQ)."""
+    if bucketed:
+        from ..io.bucketed import bucketed_read_batches
+
+        return bucketed_read_batches(path, batch_size=batch_size, max_len=max_len)
     if ckpt_mode:
         from ..checkpoint import checkpoint_source
 
         return checkpoint_source(
-            path, batch_size, max_len, False, packed, normalized,
+            path, batch_size, max_len, with_quals, packed, normalized,
             start_offset, require_offsets=checkpoint_every is not None,
         )
     from ..io.framing import _make_batch_source
 
     batches, _ = _make_batch_source(
-        path, batch_size, max_len, host_workers, with_quals=False,
+        path, batch_size, max_len, host_workers, with_quals=with_quals,
         spill_dir=spill_dir, packed=packed, normalized=normalized,
     )
     return batches
@@ -98,7 +117,7 @@ def _batch_source(
 
 def _placed_stream(
     batches, place, dev, packed, meter, double_buffer, checkpoint_every,
-    save_checkpoint,
+    save_checkpoint, ship_quals=False,
 ):
     """A driver's stream of ``place(batch)`` results, ``(num_bases,
     payload, aux, file_offset)`` with payload None where no window fits.
@@ -107,14 +126,18 @@ def _placed_stream(
     ``save_checkpoint(offset)`` fires after the driver folded every
     ``checkpoint_every``-th item (the feeders prefetch ahead of it);
     ``meter`` records ``frame``, ``h2d`` (synchronized, so its bytes/s is
-    the transfer's own) and ``wait``.
+    the transfer's own) and ``wait``, counting the quality plane's bytes
+    where ``ship_quals`` (``place`` then uploads it beside the bases).
     """
     from ..checkpoint import checkpointed_batches
 
     def transport_nbytes(batch) -> int:
         if packed:
             return batch.wire_nbytes()
-        return batch.seqs.nbytes + batch.lengths.nbytes
+        n = batch.seqs.nbytes + batch.lengths.nbytes
+        if ship_quals and batch.quals is not None:
+            n += batch.quals.nbytes
+        return n
 
     if meter is not None:
         batches = metered_iter(
@@ -456,6 +479,34 @@ def _count_step_fns(k: int, packed: bool, canonical: bool, normalized: bool,
     return spectrum, keys
 
 
+def _place_ascii(to_device, batch, quality: bool):
+    """An ASCII batch on the device: ``(seqs, int32 lengths, quals)``,
+    the quality plane only under ``quality`` (else None), where a FASTA
+    batch, which has none, raises."""
+    quals = None
+    if quality:
+        if batch.quals is None:
+            raise ValueError("quality_cutoff needs FASTQ input with qualities")
+        quals = to_device(batch.quals)
+    return (
+        to_device(batch.seqs),
+        to_device(batch.lengths.astype(np.int32, copy=False)),
+        quals,
+    )
+
+
+def _masked_ascii(payload, qthresh: Optional[int]):
+    """``(seqs, lengths)`` of a placed ASCII payload, every base whose
+    quality byte is below ``qthresh`` (``phred_offset + quality_cutoff``)
+    masked to 'N' where the payload carries qualities: its windows are
+    then invalid to every route, the key-plane kernel's as JAX's XLA
+    windows."""
+    seqs, lengths, quals = payload
+    if quals is not None:
+        seqs = quality_mask(seqs, quals, qthresh)
+    return seqs, lengths
+
+
 def count_file(
     path,
     k: int,
@@ -497,10 +548,21 @@ def count_file(
     checkpoints are of kind ``count_dense`` (k <= 9) or ``count_sparse``,
     the same files JAX's ``count_file`` writes and resumes.
 
+    ``quality_cutoff`` masks every base whose Phred score (quality byte
+    minus ``phred_offset``) is below it to 'N' on the device before
+    counting (FASTQ only; a FASTA input raises ``ValueError``).
+    ``bucketed=True`` frames reads in one process grouped by length
+    (``io.bucketed``), each batch padded only to its bucket's width (128
+    to 4096, longer reads to a multiple of 128); it excludes
+    ``host_workers > 1`` and checkpoints.  Both ship ASCII with the
+    quality plane beside it, so ``packed=None`` resolves to ``not
+    (quality_cutoff or bucketed)`` and ``packed=True`` with either raises
+    ``ValueError``.  On the card canonical keys still come from the
+    key-plane kernel, over the masked bytes at every bucket width.
+
     A tuple of k values counts them all in one pass through
     :func:`multi_k_count_file` (``bucketed`` and ``dense`` then raise
-    ``ValueError``, as in JAX).  ``bucketed`` and ``quality_cutoff`` are
-    not ported yet and raise ``NotImplementedError``.
+    ``ValueError``, as in JAX).
     """
     if isinstance(k, (tuple, list, set, frozenset)):
         if bucketed or dense is not None:
@@ -518,14 +580,10 @@ def count_file(
             checkpoint_path=checkpoint_path, resume_from=resume_from,
             meter=meter, double_buffer=double_buffer, device=device,
         )
-    if bucketed:
-        raise NotImplementedError(
-            "bucketed batching comes with the 'Bucketed batching' item of "
-            "ROADMAP.md"
-        )
-    if quality_cutoff is not None:
-        raise NotImplementedError(
-            "quality masking comes with the 'Quality' item of ROADMAP.md"
+    if bucketed and host_workers is not None and host_workers > 1:
+        raise ValueError(
+            "bucketed=True and host_workers>1 are mutually exclusive: "
+            "bucketed framing is single-process (pass one or the other)"
         )
     if dense is None:
         dense = k <= _count.MAX_DENSE_K
@@ -534,8 +592,14 @@ def count_file(
             f"dense output needs k <= {_count.MAX_DENSE_K}, got {k}; "
             "use dense=False (sparse keys/counts) for larger k"
         )
+    quality = quality_cutoff is not None
     if packed is None:
-        packed = True
+        packed = not (quality or bucketed)
+    elif packed and (quality or bucketed):
+        raise ValueError(
+            "packed transport carries no quality planes and no bucketed "
+            "shapes; drop packed=True or the conflicting option"
+        )
     dev = _resolve_device(device)
     on_cuda = dev.type == "cuda"
 
@@ -550,6 +614,7 @@ def count_file(
     spectrum_step, keys_step = _count_step_fns(
         k, packed, canonical, normalized, on_cuda
     )
+    qthresh = phred_offset + quality_cutoff if quality else None
     sem = counting_meta(
         canonical=canonical, normalized=normalized,
         quality_cutoff=quality_cutoff, phred_offset=phred_offset,
@@ -559,7 +624,7 @@ def count_file(
         kind, k,
         checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path,
         resume_from=resume_from, host_workers=host_workers,
-        canonical=canonical, normalized=normalized,
+        bucketed=bucketed, canonical=canonical, normalized=normalized,
         quality_cutoff=quality_cutoff, phred_offset=phred_offset,
     )
 
@@ -596,12 +661,13 @@ def count_file(
     batches = _batch_source(
         path, batch_size, max_len, host_workers, spill_dir, packed,
         normalized, ckpt_mode, start_offset, checkpoint_every,
+        with_quals=quality, bucketed=bucketed,
     )
     to_device = _uploader(dev)
 
     def _place(batch):
         """``(num_bases, payload, layout, file_offset)``: the wire and its
-        layout, or ASCII ``(seqs, lengths)`` and None."""
+        layout, or ASCII ``(seqs, lengths, quals | None)`` and None."""
         if batch.max_len < k:
             # no window fits; bases still count
             return batch.num_bases, None, None, batch.file_offset
@@ -609,15 +675,12 @@ def count_file(
             # no read padding: the short last batch ships as it is
             buf, layout = batch.wire_frame(batch.num_reads)
             return batch.num_bases, to_device(buf), layout, batch.file_offset
-        payload = (
-            to_device(batch.seqs),
-            to_device(batch.lengths.astype(np.int32, copy=False)),
-        )
+        payload = _place_ascii(to_device, batch, quality)
         return batch.num_bases, payload, None, batch.file_offset
 
     placed = _placed_stream(
         batches, _place, dev, packed, meter, double_buffer, checkpoint_every,
-        _save_checkpoint,
+        _save_checkpoint, ship_quals=quality,
     )
     for nb, payload, layout, _offset in placed:
         n_bases += nb
@@ -629,7 +692,7 @@ def count_file(
             vbits = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
             args = (codes, lengths, vbits)
         else:
-            args = (payload[0], payload[1], None)
+            args = (*_masked_ascii(payload, qthresh), None)
         if accumulate_dense:
             table += spectrum_step(*args)
         else:
@@ -718,8 +781,10 @@ def multi_k_count_file(
     ``keys_{k}``/``counts_{k}`` pairs), the files JAX's flat and sharded
     multi-k drivers write; a ``sharded_multik`` file resumes too.
     ``meter``, ``double_buffer``, ``host_workers``, ``spill_dir`` and
-    ``device`` act as in :func:`count_file`.  ``quality_cutoff`` is not
-    ported yet and raises ``NotImplementedError``.
+    ``device`` act as in :func:`count_file`.  ``quality_cutoff`` masks
+    low-quality bases to 'N' once per batch, before every k, as in
+    :func:`count_file` (ASCII transport; ``packed=True`` with it raises
+    ``ValueError``).
     """
     ks = tuple(sorted({int(k) for k in ks}))
     if not ks:
@@ -727,12 +792,11 @@ def multi_k_count_file(
     for k in ks:
         if not 1 <= k <= 31:
             raise ValueError(f"every k must be in [1, 31], got {k}")
-    if quality_cutoff is not None:
-        raise NotImplementedError(
-            "quality masking comes with the 'Quality' item of ROADMAP.md"
-        )
+    quality = quality_cutoff is not None
     if packed is None:
-        packed = True
+        packed = not quality
+    elif packed and quality:
+        raise ValueError("packed transport carries no quality planes")
     dev = _resolve_device(device)
     on_cuda = dev.type == "cuda"
 
@@ -814,8 +878,10 @@ def multi_k_count_file(
     batches = _batch_source(
         path, batch_size, max_len, host_workers, spill_dir, packed,
         normalized, ckpt_mode, start_offset, checkpoint_every,
+        with_quals=quality,
     )
     to_device = _uploader(dev)
+    qthresh = phred_offset + quality_cutoff if quality else None
 
     def _place(batch):
         """``(num_bases, payload, (layout, active ks), file_offset)``;
@@ -828,10 +894,7 @@ def multi_k_count_file(
             payload = to_device(buf)
         else:
             layout = None
-            payload = (
-                to_device(batch.seqs),
-                to_device(batch.lengths.astype(np.int32, copy=False)),
-            )
+            payload = _place_ascii(to_device, batch, quality)
         return batch.num_bases, payload, (layout, active), batch.file_offset
 
     def _step(data, lengths, vbits, active):
@@ -855,7 +918,7 @@ def multi_k_count_file(
 
     placed = _placed_stream(
         batches, _place, dev, packed, meter, double_buffer, checkpoint_every,
-        _save_checkpoint,
+        _save_checkpoint, ship_quals=quality,
     )
     for nb, payload, aux, _offset in placed:
         n_bases += nb
@@ -868,7 +931,8 @@ def multi_k_count_file(
             vbits = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
             _step(codes, lengths, vbits, active)
         else:
-            _step(payload[0], payload[1], None, active)
+            # masked once, before every k
+            _step(*_masked_ascii(payload, qthresh), None, active)
         if meter is not None:
             meter.add("dispatch", _time.perf_counter() - t0, items=nb)
 
@@ -893,6 +957,223 @@ def multi_k_count_file(
         meter.add("drain", now - t_drain)
         meter.add("wall", now - t_wall0, items=n_bases)
     return n_bases, out
+
+
+# ---------------------------------------------------------------------------
+# the (w, k) minimizer sketch and the mean-quality filter
+# ---------------------------------------------------------------------------
+
+
+def _minimizer_keys_fn(k: int, w: int, packed: bool, normalized: bool,
+                       on_cuda: bool):
+    """Flat masked (hi | None, lo) sketch keys of one placed batch
+    ``(data, lengths, vbits)``: over the key-plane kernel's planes on the
+    card, over :mod:`kmers` windows (the kernel's plain route) on the
+    CPU."""
+    from . import minimizers as _minimizers
+
+    def keys(data, lengths, vbits):
+        if on_cuda:
+            if packed:
+                khi, klo, _, _ = _kernels.canonical_key_planes_packed(
+                    data, vbits, lengths, k
+                )
+            else:
+                khi, klo, _, _ = _kernels.canonical_key_planes(
+                    data, lengths, k, normalized
+                )
+            win = _minimizers.window_minimizers_from_planes(khi, klo, k, w)
+        else:
+            seqs = unpack_codes(data, vbits) if packed else data
+            win = _minimizers.window_minimizers(
+                seqs, lengths, k, w, normalized=normalized, precoded=packed
+            )
+        return _window_keys(win, k)
+
+    return keys
+
+
+def minimizer_spectrum_file(
+    path,
+    k: int,
+    w: int,
+    batch_size: int = 4096,
+    max_len: Optional[int] = None,
+    normalized: bool = True,
+    sparse_format: str = "arrays",
+    mesh=None,
+    host_workers: Optional[int] = None,
+    spill_dir: Optional[str] = None,
+    packed: Optional[bool] = None,
+    checkpoint_every: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    resume_from: Optional[str] = None,
+    meter=None,
+    double_buffer: bool = True,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[int, Union[Dict[int, int], Tuple[np.ndarray, np.ndarray]]]:
+    """(w, k) minimizer spectrum of a FASTX file (or a list of files):
+    how many w-windows each canonical k-mer wins (ref sequence.rs:139-152,
+    lifted to whole-file scale).
+
+    Returns ``(n_bases, (keys uint64, counts int64))``, keys ascending, or
+    a dict with ``sparse_format="dict"``: the values JAX's
+    ``minimizer_spectrum_file`` returns.  A batch whose reads are shorter
+    than ``k + w - 1`` adds its bases and nothing else.  On the card the
+    windows come from the key-plane kernel (packed or ASCII), then
+    ``minimizers.window_minimizers_from_planes``, and the sketch keys are
+    counted as :func:`count_file` counts its keys.
+
+    ``packed`` (default on) ships the 2-bit wire, else ASCII; results are
+    identical.  Checkpoints are of kind ``minimizer`` with ``w`` in their
+    meta, the files JAX's driver writes and resumes.  ``meter``,
+    ``double_buffer``, ``host_workers``, ``spill_dir`` and ``device`` act
+    as in :func:`count_file`.  ``mesh=`` raises ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "minimizer_spectrum_file(mesh=...) comes with the 'parallel/' "
+            "item of ROADMAP.md"
+        )
+    if packed is None:
+        packed = True
+    dev = _resolve_device(device)
+
+    from ..checkpoint import (
+        counting_meta,
+        prepare_checkpoint_stream,
+        save_stream_checkpoint,
+    )
+
+    def _check_w(ck):
+        ck_w = int(ck["meta"].get("w", -1))
+        if ck_w != w:
+            raise ValueError(
+                f"checkpoint {resume_from!r} is a (w={ck_w}, k={ck['k']}) "
+                f"sketch, expected w={w}"
+            )
+
+    ckpt_mode, ck = prepare_checkpoint_stream(
+        "minimizer", k,
+        checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path,
+        resume_from=resume_from, host_workers=host_workers,
+        validate=_check_w, normalized=normalized,
+    )
+    sparse = _count.SparseSpectrumAccumulator()
+    n_bases = 0
+    start_offset = 0
+    if ck is not None:
+        start_offset = ck["file_offset"]
+        n_bases = ck["n_bases"]
+        sparse.restore(ck["arrays"]["keys"], ck["arrays"]["counts"])
+
+    def _save_checkpoint(offset):
+        keys, counts = sparse.finish()  # flushes; the accumulator stays live
+        save_stream_checkpoint(
+            checkpoint_path, "minimizer", k, offset, n_bases,
+            {"keys": keys, "counts": counts}, input_path=str(path),
+            meta={"w": np.int32(w), **counting_meta(normalized=normalized)},
+        )
+
+    keys_step = _minimizer_keys_fn(k, w, packed, normalized, dev.type == "cuda")
+    t_wall0 = _time.perf_counter()
+    batches = _batch_source(
+        path, batch_size, max_len, host_workers, spill_dir, packed,
+        normalized, ckpt_mode, start_offset, checkpoint_every,
+    )
+    to_device = _uploader(dev)
+
+    def _place(batch):
+        """``(num_bases, payload, layout, file_offset)`` as in
+        :func:`count_file`."""
+        if batch.max_len < k + w - 1:
+            return batch.num_bases, None, None, batch.file_offset
+        if packed:
+            buf, layout = batch.wire_frame(batch.num_reads)
+            return batch.num_bases, to_device(buf), layout, batch.file_offset
+        payload = _place_ascii(to_device, batch, False)[:2]
+        return batch.num_bases, payload, None, batch.file_offset
+
+    placed = _placed_stream(
+        batches, _place, dev, packed, meter, double_buffer, checkpoint_every,
+        _save_checkpoint,
+    )
+    for nb, payload, layout, _offset in placed:
+        n_bases += nb
+        if payload is None:
+            continue
+        t0 = _time.perf_counter() if meter is not None else 0.0
+        if packed:
+            codes, lengths, vbits, vrow_idx, vrows = unwire(payload, layout)
+            vbits = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
+            sparse.add(*keys_step(codes, lengths, vbits))
+        else:
+            sparse.add(*keys_step(payload[0], payload[1], None))
+        if meter is not None:
+            meter.add("dispatch", _time.perf_counter() - t0, items=nb)
+
+    t_drain = _time.perf_counter()
+    keys, counts = sparse.finish()
+    result = (
+        _count.spectrum_arrays_to_dict(keys, counts)
+        if sparse_format == "dict" else (keys, counts)
+    )
+    if meter is not None:
+        now = _time.perf_counter()
+        meter.add("drain", now - t_drain)
+        meter.add("wall", now - t_wall0, items=n_bases)
+    return n_bases, result
+
+
+def quality_filter_file(
+    in_path,
+    out_path,
+    min_mean_quality: float,
+    phred_offset: int = 33,
+    batch_size: int = 4096,
+    max_len: Optional[int] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[int, int]:
+    """Write the reads of a FASTQ file whose mean Phred score is at least
+    ``min_mean_quality`` to ``out_path``; returns ``(n_reads_in,
+    n_reads_kept)``.
+
+    The means are computed on the device (``quality.mean_quality``, JAX's
+    float32 arithmetic step for step) and compared on the host as JAX's
+    driver compares them; each kept read is written as
+    ``@id\nseq\n+\nqual\n``, so the file equals the one JAX's
+    ``quality_filter_file`` writes, byte for byte.  A FASTA input raises
+    ``ValueError``.
+    """
+    from ..io.fast_batch import fast_read_batches
+    from .quality import mean_quality
+
+    dev = _resolve_device(device)
+    to_device = _uploader(dev)
+    n_in = n_kept = 0
+    with open(out_path, "wb") as out:
+        for batch in fast_read_batches(
+            in_path, batch_size=batch_size, max_len=max_len, with_ids=True
+        ):
+            if batch.quals is None:
+                raise ValueError("quality filtering needs FASTQ input")
+            n = batch.num_reads
+            n_in += n
+            means = mean_quality(
+                to_device(batch.quals), to_device(batch.lengths), phred_offset
+            ).cpu().numpy()[:n]
+            keep = np.flatnonzero(means >= min_mean_quality)
+            lens = batch.lengths
+            out.write(b"".join(
+                b"@%s\n%s\n+\n%s\n" % (
+                    bytes(batch.ids[i]),
+                    batch.seqs[i, : int(lens[i])].tobytes(),
+                    batch.quals[i, : int(lens[i])].tobytes(),
+                )
+                for i in keep
+            ))
+            n_kept += len(keep)
+    return n_in, n_kept
 
 
 def readme_pipeline(

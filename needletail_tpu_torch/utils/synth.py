@@ -1,6 +1,7 @@
 """Seeded synthetic inputs: read planes for holding kernels against their
-plain versions (the tests and ``chip_smoke.py`` use them), and the
-whole-genome FASTA of the genome-spectrum path.
+plain versions (the tests and ``chip_smoke.py`` use them), the
+whole-genome FASTA of the genome-spectrum path, and a FASTQ of mixed read
+lengths for the bucketed path.
 
 Every input comes from a numpy ``Generator``, so the JAX package, the
 port's plain versions and its CUDA kernels all see the same bytes.
@@ -15,7 +16,7 @@ from ..encoding import pack_codes_host_rows
 
 __all__ = [
     "CLEAN", "DIRTY", "random_reads", "packed_batch", "packed_rows",
-    "odd_offset_view", "synthetic_genome",
+    "odd_offset_view", "synthetic_genome", "mixed_length_fastq",
 ]
 
 # case-folded bases only: every in-length byte encodes
@@ -128,3 +129,44 @@ def synthetic_genome(
     else:
         body = body.tobytes()
     return b">" + name.encode() + b" synthetic uniform genome\n" + body
+
+
+def mixed_length_fastq(
+    seed: int,
+    short_reads: int = 1600,
+    long_reads: int = 20,
+    short_len=(36, 150),
+    long_len=(2000, 8000),
+    n_frac: float = 0.002,
+) -> bytes:
+    """A FASTQ of short reads (lengths uniform in ``short_len``) and long
+    ones (``long_len``) in random order, so a length-bucketed stream meets
+    several widths.  Bases are uniform ACGT with an N at ``n_frac`` of
+    them.  Qualities (offset 33) are Phred 20-41, but for a low tail of
+    each read (0-12% of its length, as sequencers' quality falls along a
+    read) and 1% of the other bases, at Phred 2-19: about 7% of the
+    bases in all."""
+    rng = np.random.default_rng(seed)
+    lengths = np.concatenate([
+        rng.integers(short_len[0], short_len[1] + 1, short_reads),
+        rng.integers(long_len[0], long_len[1] + 1, long_reads),
+    ])
+    rng.shuffle(lengths)
+    total = int(lengths.sum())
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, total)]
+    seq[rng.random(total) < n_frac] = ord("N")
+    low = rng.random(total) < 0.01
+    tails = (lengths * rng.random(lengths.size) * 0.12).astype(np.int64)
+    ends = np.cumsum(lengths)
+    for end, tail in zip(ends.tolist(), tails.tolist()):
+        low[end - tail:end] = True
+    qual = (33 + rng.integers(20, 42, total)).astype(np.uint8)
+    qual[low] = 33 + rng.integers(2, 20, int(low.sum()))
+    out = []
+    start = 0
+    for i, end in enumerate(ends.tolist()):
+        out.append(b"@m%d\n%s\n+\n%s\n" % (
+            i, seq[start:end].tobytes(), qual[start:end].tobytes()
+        ))
+        start = end
+    return b"".join(out)

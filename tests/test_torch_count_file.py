@@ -4,8 +4,8 @@ Both drivers read the same files, the port on the CPU (its kernels' plain
 versions), JAX on the CPU.  The spectra must be equal key for key and count
 for count, in the same types, and reach the corpus goldens.  Also: both
 checkpoint kinds resume within the port and across the packages in both
-directions, the ``count`` CLIs print the same, and what is not ported yet
-raises.
+directions, the ``count`` CLIs print the same, and the options JAX refuses
+are refused.
 """
 
 import os
@@ -160,10 +160,18 @@ def test_max_len_below_k_counts_bases_only(tmp_path, packed):
     assert got[0] == 40 * 14 and got[1][0].size == 0
 
 
-def test_not_ported_options_raise():
+def test_not_ported_options_raise(tmp_path):
+    """The refusals of the ported options, as JAX refuses them, and the
+    one option still not ported (a mesh)."""
     for kw in (dict(quality_cutoff=20), dict(bucketed=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.count_file(FQ, 21, device="cpu", **kw)
+        with pytest.raises(ValueError, match="packed transport"):
+            tpipe.count_file(FQ, 21, packed=True, device="cpu", **kw)
+    fa = tmp_path / "reads.fa"
+    fa.write_bytes(b">a\n" + b"ACGT" * 10 + b"\n")
+    with pytest.raises(ValueError, match="quality_cutoff needs FASTQ"):
+        tpipe.count_file(str(fa), 21, quality_cutoff=20, device="cpu", **RUN)
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        tpipe.minimizer_spectrum_file(FQ, 21, 11, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="bucketed/dense"):
         tpipe.count_file(FQ, (4, 21), bucketed=True, device="cpu")
     with pytest.raises(ValueError, match="dense output"):

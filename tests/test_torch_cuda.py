@@ -381,3 +381,120 @@ def test_cuda_compact_slots_chunks_and_views(cuda_device, chunk, slots, offset):
         want = tk.compact_slots_plain(*args, chunk=chunk, slots=slots)
         for a, b in zip(got, want):
             assert (a is None and b is None) or torch.equal(a, b)
+
+
+# every width a length-bucketed stream gives the ASCII key-plane kernel:
+# the default buckets and a dynamic width (a multiple of 128, no power of 2)
+BUCKET_WIDTHS = [128, 256, 512, 1024, 2048, 4096, 8064]
+
+
+@pytest.mark.parametrize("width", BUCKET_WIDTHS)
+def test_cuda_key_planes_bucket_widths(cuda_device, width):
+    """The ASCII planes mode at every bucket width, k=21 and 31, on
+    quality-masked reads (the bucketed and quality paths' input)."""
+    from needletail_tpu_torch.device.ops import quality_mask
+
+    rng = np.random.default_rng(width)
+    rows = max(8, (1 << 20) // width)
+    seqs, lengths = random_reads(rng, rows, width, dirty_frac=0.3)
+    quals = rng.integers(33, 75, seqs.shape).astype(np.uint8)
+    s = quality_mask(torch.from_numpy(seqs), torch.from_numpy(quals), 53)
+    s, ln = s.to(cuda_device), torch.from_numpy(lengths).to(cuda_device)
+    for k in (21, 31):
+        for normalized in (True, False):
+            got = tk.canonical_key_planes(s, ln, k, normalized)
+            want = tk.canonical_key_planes_plain(s, ln, k, normalized)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (width, k, normalized)
+
+
+def test_cuda_quality_paths_match_plain(cuda_device, tmp_path):
+    """``count_file`` and ``multi_k_count_file`` under ``quality_cutoff``
+    (key planes over the masked bytes, k=9 dense through the histogram)
+    and ``quality_filter_file`` on the card equal to the CPU's."""
+    from pathlib import Path
+
+    from needletail_tpu_torch.device.pipeline import (
+        count_file, multi_k_count_file, quality_filter_file,
+    )
+
+    copies = tmp_path / "x8.fq"
+    copies.write_bytes(Path(FQ).read_bytes() * 8)
+    kw = dict(batch_size=4096, max_len=128, host_workers=1,
+              sparse_format="arrays", quality_cutoff=20)
+    for k, kernel in ((21, "key_planes"), (9, "histogram16")):
+        tk.reset_launches()
+        got = count_file(str(copies), k, device="cuda", **kw)
+        assert tk.LAUNCHES[kernel] > 0, (k, tk.LAUNCHES)
+        want = count_file(FQ, k, device="cpu", **kw)
+        assert got[0] == 8 * want[0]
+        if k == 9:
+            np.testing.assert_array_equal(got[1], 8 * want[1])
+        else:
+            np.testing.assert_array_equal(got[1][0], want[1][0])
+            np.testing.assert_array_equal(got[1][1], 8 * want[1][1])
+    tk.reset_launches()
+    got = multi_k_count_file(str(copies), (4, 21), device="cuda", **kw)
+    assert tk.LAUNCHES["histogram16"] > 0 and tk.LAUNCHES["key_planes"] > 0
+    want = multi_k_count_file(FQ, (4, 21), device="cpu", **kw)
+    np.testing.assert_array_equal(got[1][4], 8 * want[1][4])
+    np.testing.assert_array_equal(got[1][21][1], 8 * want[1][21][1])
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.fq"
+        outs[device] = (quality_filter_file(FQ, str(out), 30, device=device),
+                        out.read_bytes())
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"][0] == (2000, 1732)
+
+
+def test_cuda_minimizers_match_plain(cuda_device, tmp_path):
+    """The planes route of the sketch on the card: the kernel's planes
+    through ``window_minimizers_from_planes`` equal to ``window_minimizers``
+    on the same tensors, and ``minimizer_spectrum_file`` packed and ASCII
+    equal to the CPU's."""
+    from needletail_tpu_torch.device import minimizers as tm
+    from needletail_tpu_torch.device.pipeline import minimizer_spectrum_file
+
+    rng = np.random.default_rng(62)
+    seqs, lengths = random_reads(rng, 512, 152, dirty_frac=0.3)
+    s = torch.from_numpy(seqs).to(cuda_device)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    for k, w in ((15, 5), (21, 11), (31, 11)):
+        khi, klo, _, _ = tk.canonical_key_planes(s, ln, k)
+        got = tm.window_minimizers_from_planes(khi, klo, k, w)
+        want = tm.window_minimizers(s, ln, k, w)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (k, w)
+    kw = dict(batch_size=4096, max_len=128, host_workers=1)
+    for packed in (True, False):
+        tk.reset_launches()
+        got = minimizer_spectrum_file(FQ, 21, 11, packed=packed,
+                                      device="cuda", **kw)
+        assert tk.LAUNCHES["key_planes"] > 0
+        want = minimizer_spectrum_file(FQ, 21, 11, packed=packed,
+                                       device="cpu", **kw)
+        assert got[0] == want[0] == GOLD[0]
+        for a, b in zip(got[1], want[1]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cuda_bucketed_matches_plain(cuda_device, tmp_path):
+    """``count_file(bucketed=True, quality_cutoff=20)`` over mixed read
+    lengths (widths 128, 256, 4096 and a dynamic one) on the card equal
+    to the CPU's and to the flat stream's."""
+    from needletail_tpu_torch.device.pipeline import count_file
+    from needletail_tpu_torch.utils.synth import mixed_length_fastq
+
+    fq = tmp_path / "mixed.fq"
+    fq.write_bytes(mixed_length_fastq(7, short_reads=400, long_reads=8))
+    kw = dict(batch_size=512, sparse_format="arrays", quality_cutoff=20)
+    tk.reset_launches()
+    got = count_file(str(fq), 31, bucketed=True, device="cuda", **kw)
+    assert tk.LAUNCHES["key_planes"] > 0
+    for want in (
+        count_file(str(fq), 31, bucketed=True, device="cpu", **kw),
+        count_file(str(fq), 31, device="cuda", host_workers=1, **kw),
+    ):
+        assert got[0] == want[0]
+        for a, b in zip(got[1], want[1]):
+            np.testing.assert_array_equal(a, b)

@@ -4,8 +4,9 @@ exactly as the JAX package does.
 A subprocess refuses every import of ``needletail_tpu`` (and of JAX) through
 a ``sys.meta_path`` finder installed by ``sitecustomize``, so spawned
 framing workers refuse them too; in it the port imports every module,
-imports ``chip_smoke`` and runs the hash, exact, multi-k and genome
-drivers on the CPU.  The port's copies
+imports ``chip_smoke`` and runs the hash, exact, multi-k, genome,
+quality, bucketed, minimizer and filter drivers and the ``filter`` and
+``minimizers`` commands on the CPU.  The port's copies
 of the framers, batches and codecs then produce the JAX package's batches,
 field for field, over every fixture.
 """
@@ -89,6 +90,39 @@ with open(fa, "wb") as f:
 n, (keys, counts) = genome_spectrum(fa, 31, tile_len=1024, device="cpu",
                                     sparse_format="arrays")
 assert (n, int(counts.sum())) == (20000, 20000 - 30), (n, counts.sum())
+from needletail_tpu_torch import cli
+from needletail_tpu_torch.device.pipeline import (
+    minimizer_spectrum_file, quality_filter_file,
+)
+
+n, (keys, counts) = count_file(fq, 21, batch_size=512, max_len=128,
+                               device="cpu", host_workers=2,
+                               quality_cutoff=20, sparse_format="arrays")
+assert (n, int(counts.sum()), len(keys)) == (250000, 146651, 116744), (
+    n, counts.sum(), len(keys))
+n, (keys, counts) = count_file(fq, 31, batch_size=512, device="cpu",
+                               bucketed=True, sparse_format="arrays")
+assert (n, int(counts.sum()), len(keys)) == (250000, 189960, 153526), (
+    n, counts.sum(), len(keys))
+n, (keys, counts) = minimizer_spectrum_file(fq, 21, 11, batch_size=512,
+                                            max_len=128, device="cpu",
+                                            host_workers=2)
+assert (n, len(keys), int(counts.sum())) == (250000, 28606, 189960), (
+    n, len(keys), counts.sum())
+kept = os.path.join(tempfile.mkdtemp(), "kept.fq")
+assert quality_filter_file(fq, kept, 30, device="cpu") == (2000, 1732)
+import contextlib
+import io
+
+with contextlib.redirect_stdout(io.StringIO()) as printed:
+    assert cli.main(["filter", fq, kept, "--min-quality", "30",
+                     "--device", "cpu"]) == 0
+    assert cli.main(["minimizers", fq, "-k", "21", "-w", "11", "--top", "1",
+                     "--device", "cpu"]) == 0
+assert printed.getvalue().splitlines() == [
+    '{"reads_in": 2000, "reads_kept": 1732}',
+    "AAGAGCGTCGTGTAGGGAAAG\t586",
+], printed.getvalue()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("needletail_tpu", "jax", "jaxlib"))
 assert not leaked, leaked

@@ -92,8 +92,9 @@ def test_multi_k_refusals(head):
         tpipe.multi_k_count_file(head, (), device="cpu")
     with pytest.raises(ValueError, match="every k"):
         tpipe.multi_k_count_file(head, (4, 32), device="cpu")
-    with pytest.raises(NotImplementedError, match="Quality"):
-        tpipe.multi_k_count_file(head, (4, 21), quality_cutoff=20, device="cpu")
+    with pytest.raises(ValueError, match="packed transport"):
+        tpipe.multi_k_count_file(head, (4, 21), quality_cutoff=20,
+                                 packed=True, device="cpu")
 
 
 @pytest.mark.parametrize("canonical,normalized", [
