@@ -72,17 +72,31 @@ Phases, each fatal on failure:
    a seeded mixed-length FASTQ (reads of 36-150 bp and 2-8 kbp) written
    256 times, equal to the flat run on the card and to 256 x the plain
    one-copy result, the widths it met and the bases/s of both;
-14. the block-sort experiment (``needletail_tpu_torch.bench.exp_block_sort``):
+14. the sharded paths (``needletail_tpu_torch.parallel``) on a NCCL world
+   of one: ``sharded_hash_count_file``, ``sharded_count_file`` (k=21),
+   ``sharded_multi_k_count_file`` (4, 21, 31) and the (11, 21) sketch
+   over the 64M bases, ``genome_spectrum(mesh=)`` over the 5 Mbp genome
+   (to its goldens and checksums), each equal to the flat driver's
+   result on the card in this run and through its kernels (launch counts
+   read around each run, and every kernel of the lane named in a
+   ``torch.profiler`` view of one more run behind a warm-up step, with
+   the NCCL collectives' device time; beside it a view without the
+   warm-up step, which loses the first records); the hash and exact walls
+   beside the flat ones (best of 2, alternating); the dryrun
+   (``needletail_tpu_torch.dryrun``); ``hash-count --sharded`` and
+   ``count --sharded`` through the command line, printing what the flat
+   commands print;
+15. the block-sort experiment (``needletail_tpu_torch.bench.exp_block_sort``):
    checked against the plain sort, then timed beside its plain version and
    ``torch.sort``; these are the block sort's times in the kernels line;
-15. each other kernel's time beside its plain version's, its bound and,
+16. each other kernel's time beside its plain version's, its bound and,
    where one PyTorch call computes the same function, that call's, at the
    main paths' shapes (CUDA events around calls queued behind a spin, so
    the card's time and not the host's), the histogram also on one hot key
    and on 90% invalid keys, the compaction also on its second cascade
    pass, and the times of the flush's sort and of its whole run count
    (``unique_counts``: the sort, run heads and lengths);
-16. stop every process the run started (the framing pool's resource
+17. stop every process the run started (the framing pool's resource
    tracker) and fail if a child is still alive; then a
    ``{"kernels": [...]}`` line (``launches_by_path`` counts each kernel's
    launches on every path above that runs it) and the last line
@@ -960,6 +974,13 @@ PORT_KERNELS = (
 )
 
 
+# the function each wrapper's launch counter stands for
+KERNEL_SYMBOL = {
+    "hash_keys": "window_kernel", "key_planes": "window_kernel",
+    "histogram16": "histogram16_kernel", "compact_slots": "compact_slots_kernel",
+}
+
+
 def device_time_by_name(events) -> dict:
     """``{name: [ms, calls]}`` from ``(name, device_us, calls)`` triples,
     summed over every triple of one full name, largest first."""
@@ -972,26 +993,47 @@ def device_time_by_name(events) -> dict:
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1][0]))
 
 
-def device_profile(fn) -> dict:
+# spin kernels the profile's warm-up step launches before recording
+WARMUP_KERNELS = 256
+
+
+def device_profile(fn, warmup: bool = True) -> dict:
     """Wall seconds of ``fn()`` under ``torch.profiler``, and the device
     time (ms) of its kernels and copies, in all and by name (largest
     first; names cut to 80 characters only in ``top_ms_calls``), with the
     port's own kernels listed apart (``port_ms_calls``) whatever their
     rank.  Streams that overlap count twice, so the busy share is an upper
-    bound."""
+    bound.
+
+    The profile first takes a warm-up step of ``WARMUP_KERNELS`` spin
+    kernels, whose records the profiler discards: late in a long process,
+    a session that records from its start loses the device records of its
+    first kernels (a sharded lane's first batches; ``warmup=False`` shows
+    it)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=int(warmup), active=1, repeat=1),
+    ) as prof:
+        if warmup:
+            for _ in range(WARMUP_KERNELS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
     events = []
     for evt in prof.key_averages():
         if "CUDA" not in str(evt.device_type):
             continue  # host events; their kernels are listed on their own
+        if evt.key.startswith("ProfilerStep"):
+            continue  # the step's span on the device's timeline, not work
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
@@ -1009,6 +1051,11 @@ def device_profile(fn) -> dict:
             [name[:80], ms, n] for name, (ms, n) in by_name.items()
             if any(f"::{k}" in name for k in PORT_KERNELS)
         ],
+        # NCCL's collective kernels, on the sharded paths
+        "nccl_ms": sum(ms for name, (ms, _) in by_name.items()
+                       if "nccl" in name.lower()),
+        "nccl_ms_calls": [[name[:80], ms, n] for name, (ms, n) in by_name.items()
+                          if "nccl" in name.lower()],
     }
 
 
@@ -1159,6 +1206,17 @@ def genome_checksums(hi_s, lo_s, counts) -> tuple:
         ((hi_s.to(torch.int64) & m) * c).sum() & m,
     ])
     return tuple(out.tolist())
+
+
+def array_checksums(keys, counts) -> tuple:
+    """:func:`genome_checksums` of ``(keys uint64, counts)`` arrays."""
+    import numpy as np
+
+    m = np.uint64(0xFFFFFFFF)
+    c = counts.astype(np.uint64)  # the sums wrap mod 2^64, so mod 2^32 holds
+    return (int((counts > 0).sum()), int(counts.sum()),
+            int(((keys & m) * c).sum() & m),
+            int(((keys >> np.uint64(32)) * c).sum() & m))
 
 
 def equal_arrays(got, want, what: str) -> None:
@@ -1612,6 +1670,198 @@ def run_bucketed_path(tmp: Path, card: str) -> dict:
             "bases": got[0]}
 
 
+def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
+    """Phase 16: the ``parallel`` drivers on a NCCL world of one, each
+    held at tolerance 0 against the flat driver's result on the card in
+    this run, with the launches of each path: the hash and exact (k=21)
+    paths over the 64M bases (best of 2 each, alternating with the flat
+    driver, and one profiled run each for the collectives' device time),
+    multi-k (4, 21, 31), the (11, 21) sketch (ASCII, as the mesh path
+    rides), the 5 Mbp genome at k=31 to its goldens, the dryrun, and
+    ``hash-count --sharded`` and ``count --sharded`` through the command
+    line, whose output equals the flat commands'."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from needletail_tpu_torch import cli
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.pipeline import (
+        count_file, hash_count_file, minimizer_spectrum_file,
+        multi_k_count_file,
+    )
+    from needletail_tpu_torch.device.tiling import genome_spectrum
+    from needletail_tpu_torch.dryrun import dryrun
+    from needletail_tpu_torch.parallel import (
+        make_mesh, sharded_count_file, sharded_hash_count_file,
+        sharded_multi_k_count_file,
+    )
+    from needletail_tpu_torch.parallel.distributed import initialize, shutdown
+
+    initialize(device="cuda")
+    out = {"launches": {}, "walls": {}, "nccl": {}, "profiled": {}}
+    try:
+        mesh = make_mesh(data=1, table=1)
+        log(f"sharded: backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}, mesh {mesh}")
+        lanes = dict(shard_lanes=1 << 26)
+        exact_kw = dict(batch_size=BATCH, max_len=MAX_LEN)
+        paths = {
+            "hash": (
+                lambda: hash_count_file(str(big), K, device="cuda",
+                                        **exact_kw),
+                lambda: sharded_hash_count_file(str(big), K, mesh,
+                                                **exact_kw),
+                ("hash_keys", "histogram16"),
+            ),
+            "exact k=21": (
+                lambda: count_file(str(big), K, device="cuda",
+                                   sparse_format="arrays", **exact_kw),
+                lambda: sharded_count_file(str(big), K, mesh, **lanes,
+                                           **exact_kw),
+                ("key_planes", "compact_slots"),
+            ),
+            "multi-k": (
+                lambda: multi_k_count_file(str(big), MULTI_KS, device="cuda",
+                                           **exact_kw),
+                lambda: sharded_multi_k_count_file(str(big), MULTI_KS, mesh,
+                                                   **lanes, **exact_kw),
+                ("histogram16", "key_planes", "compact_slots"),
+            ),
+            "minimizers": (
+                lambda: minimizer_spectrum_file(
+                    str(big), MINIMIZER_K, MINIMIZER_W, packed=False,
+                    device="cuda", **exact_kw),
+                lambda: minimizer_spectrum_file(
+                    str(big), MINIMIZER_K, MINIMIZER_W, mesh=mesh,
+                    **exact_kw),
+                ("key_planes", "compact_slots"),
+            ),
+            "genome": (
+                lambda: genome_spectrum(
+                    str(tmp / "genome.fa"), GENOME_K, tile_len=GENOME_TILE,
+                    batch_tiles=GENOME_BATCH_TILES, sparse_format="arrays",
+                    device="cuda"),
+                lambda: genome_spectrum(
+                    str(tmp / "genome.fa"), GENOME_K, tile_len=GENOME_TILE,
+                    batch_tiles=GENOME_BATCH_TILES, sparse_format="arrays",
+                    mesh=mesh),
+                ("key_planes", "compact_slots"),
+            ),
+        }
+        for name, (flat, sharded, kernels) in paths.items():
+            want = flat()
+            K_.reset_launches()
+            t0 = time.perf_counter()
+            got = sharded()
+            first_s = time.perf_counter() - t0
+            launches = dict(K_.LAUNCHES)
+            expect_same(got, want, f"sharded {name}")
+            launched(f"sharded {name}", launches, *kernels)
+            out["launches"][name] = launches
+            del got, want
+            # the profiler's view of one more run: the hand kernels it
+            # names (beside the wrappers' counts of that run) and the
+            # collectives' device time; and of a run profiled without the
+            # warm-up step, which loses the first records
+            def named_in(prof):
+                return {
+                    kernel: sum(n for call, _, n in prof["port_ms_calls"]
+                                if f"::{KERNEL_SYMBOL[kernel]}" in call)
+                    for kernel in kernels
+                }
+
+            named_cold = named_in(device_profile(sharded, warmup=False))
+            K_.reset_launches()
+            prof = device_profile(sharded)
+            named = named_in(prof)
+            counted = {kernel: K_.LAUNCHES[kernel] for kernel in kernels}
+            out["nccl"][name] = {key: prof[key] for key in (
+                "nccl_ms", "nccl_ms_calls", "device_ms", "wall_s")}
+            out["profiled"][name] = {"named": named, "counted": counted,
+                                     "named_without_warmup": named_cold}
+            log(f"sharded {name}: equal to the flat driver's result; "
+                f"launches {launches}; first run {first_s:.3f} s; the "
+                f"profiled run's kernels: named {named}, counted {counted} "
+                f"(without the warm-up step: named {named_cold}); device "
+                f"profile {json.dumps(prof)}")
+            missing = [kernel for kernel in kernels if not named[kernel]]
+            if missing:
+                raise AssertionError(f"sharded {name}: the profile names "
+                                     f"no launch of {missing}")
+        n, (keys, counts) = paths["genome"][1]()  # to the genome's goldens
+        got = array_checksums(keys, counts)
+        if (n, got) != (GENOME_BASES, GOLD_GENOME):
+            raise AssertionError(f"sharded genome: {n} bases, checksums "
+                                 f"{got} != {GOLD_GENOME}")
+        log(f"sharded genome: {n} bases, distinct {got[0]}, windows "
+            f"{got[1]}, checksums {got[2]} / {got[3]}")
+        del keys, counts
+        for name in ("hash", "exact k=21"):
+            flat, sharded, _ = paths[name]
+            walls = {"flat": float("inf"), "sharded": float("inf")}
+            for side in ("flat", "sharded", "sharded", "flat"):
+                fn = flat if side == "flat" else sharded
+                t0 = time.perf_counter()
+                fn()
+                walls[side] = min(walls[side], time.perf_counter() - t0)
+            out["walls"][name] = walls
+            log(f"sharded {name} e2e: world of one best of 2 "
+                f"{walls['sharded']:.4f} s, flat {walls['flat']:.4f} s "
+                f"({card})")
+        K_.reset_launches()
+        log(dryrun())
+        out["launches"]["dryrun"] = dict(K_.LAUNCHES)
+    finally:
+        shutdown()
+
+    # the command line starts and ends its own world of one
+    def run_cli(*argv):
+        stdout, stderr = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+            if cli.main(list(argv)) != 0:
+                raise AssertionError(f"cli {argv} failed")
+        return stdout.getvalue(), [
+            line for line in stderr.getvalue().splitlines()
+            if line.startswith("#")
+        ]
+
+    for argv in (("hash-count", str(small), "-k", str(K)),
+                 ("count", str(FA_28S), "-k", "31", "--top", "3")):
+        flat = run_cli(*argv, "--device", "cuda")
+        K_.reset_launches()
+        got = run_cli(*argv, "--device", "cuda", "--sharded")
+        out["launches"][f"cli {argv[0]} --sharded"] = dict(K_.LAUNCHES)
+        if got != flat:
+            raise AssertionError(f"cli {argv[0]} --sharded: {got} != {flat}")
+        log(f"cli {' '.join(argv[:1])} --sharded: the flat command's output "
+            f"{got[0].strip()!r} {got[1]}; launches {dict(K_.LAUNCHES)}")
+    return out
+
+
+def expect_same(got, want, what: str) -> None:
+    """Equal driver results: ints, numpy arrays, (keys, counts) pairs and
+    dicts of them, dtypes included."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if list(got) != list(want):
+            raise AssertionError(f"{what}: keys {list(got)} != {list(want)}")
+        for key in want:
+            expect_same(got[key], want[key], f"{what} [{key}]")
+    elif isinstance(want, (tuple, list)):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} parts != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            expect_same(g, w, f"{what} [{i}]")
+    elif isinstance(want, np.ndarray):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"{what}: arrays differ")
+    elif got != want:
+        raise AssertionError(f"{what}: {got} != {want}")
+
+
 def kernel_entry(name, source, replaces, launches, worst, t) -> dict:
     ms, by = t["bound"]
     entry = {
@@ -1818,19 +2068,22 @@ def run() -> int:
         minimizers = run_minimizer_path(big, card)
         bucketed = run_bucketed_path(tmp, card)
 
-        # ---- 14. the block-sort experiment ------------------------------
+        # ---- 14. the sharded paths on a NCCL world of one ---------------
+        sharded = run_sharded_path(big, small, tmp, card)
+
+        # ---- 15. the block-sort experiment ------------------------------
         K_.reset_launches()
         sort_exp = exp_block_sort.run(log=log)
         sort_launches = K_.LAUNCHES["block_sort"]
         if sort_launches <= 0:
             raise AssertionError("the block-sort experiment launched no sort")
 
-        # ---- 15. kernel times at the main paths' shapes ----------------
+        # ---- 16. kernel times at the main paths' shapes ----------------
         times = time_kernels(errors, str(big))
         times["block_sort"] = block_sort_times(errors, sort_exp)
         log("kernel times: " + json.dumps(times))
 
-    # ---- 16. nothing this run started outlives it ---------------------
+    # ---- 17. nothing this run started outlives it ---------------------
     running = child_processes()
     log(f"children before the stop: {running or 'none'}")
     left = stop_children()
@@ -1906,6 +2159,14 @@ def run() -> int:
         **{p: n["compact_slots"] for p, n in new_paths.items()
            if n["compact_slots"]},
     }
+    kernels[0]["launches_by_path"] = {"hash": launches["hash_keys"]}
+    for path, counts in sharded["launches"].items():
+        for entry in kernels:
+            if counts.get(entry["name"], 0) > 0:
+                entry.setdefault("launches_by_path", {})[
+                    path if path.startswith(("cli", "dryrun"))
+                    else f"sharded {path}"
+                ] = counts[entry["name"]]
     for entry in kernels:
         entry["card"] = name
         entry["power_limit"] = power
@@ -1933,6 +2194,11 @@ def run() -> int:
                        for p, v in minimizers.items()},
         "bucketed": {key: bucketed[key] for key in (
             "bases_per_s", "best_s", "flat_s", "widths", "bases")},
+        "card": name, "power_limit": power,
+    }))
+    log("sharded e2e (NCCL world of one): " + json.dumps({
+        "walls_s": sharded["walls"], "collectives": sharded["nccl"],
+        "profiled_kernels": sharded["profiled"],
         "card": name, "power_limit": power,
     }))
     log(json.dumps({"kernels": kernels}))

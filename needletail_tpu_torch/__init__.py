@@ -21,6 +21,10 @@ Layout mirrors the JAX package:
     slot-compaction cascade, the streaming sparse accumulator.
   * ``device.pipeline``  — ``hash_count_file`` and ``count_file``.
   * ``checkpoint``       — stream checkpoints, file-compatible with JAX's.
+  * ``parallel``         — the sharded drivers on ``torch.distributed``
+    (one process a device; NCCL on the card, gloo on the CPU).
+  * ``dryrun``           — the sharded paths on tiny shapes, on the
+    current process group.
   * ``cli``              — ``python -m needletail_tpu_torch.cli count`` and
     ``hash-count``.
 """

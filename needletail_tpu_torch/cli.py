@@ -9,14 +9,20 @@
     python -m needletail_tpu_torch.cli spectrum genome.fa -k 31 -o spec.npz
 
 print what ``needletail-tpu hash-count``, ``count``, ``minimizers``,
-``filter`` and ``spectrum`` print.  ``--sharded`` is not ported yet (the
-``parallel/`` item of ROADMAP.md), nor are the host-only commands
-``stats``, ``bgzip`` and ``convert``.
+``filter`` and ``spectrum`` print; the host-only commands ``stats``,
+``bgzip`` and ``convert`` are not ported yet.
+
+``--sharded`` (``count``, ``hash-count``, ``minimizers``, ``spectrum``)
+runs the ``parallel`` drivers over every rank of a process group: a world
+of one on this process's device, or under ``torchrun --nproc-per-node=N``
+the group its environment describes (NCCL on the cards, gloo with
+``--device cpu``).  Rank 0 prints, the same output as the flat command.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 from typing import Optional
@@ -32,6 +38,26 @@ def _profile_meter(args):
 
 def _paths(args):
     return args.path if len(args.path) > 1 else args.path[0]
+
+
+@contextlib.contextmanager
+def _sharded(args):
+    """``--sharded``: yields a ``(data, 1)`` mesh over every rank of the
+    process group (started here, ended on the way out) and whether this
+    rank prints; ``(None, True)`` without the flag."""
+    if not getattr(args, "sharded", False):
+        yield None, True
+        return
+    import torch.distributed as dist
+
+    from .parallel import make_mesh
+    from .parallel.distributed import initialize, shutdown
+
+    initialize(device=args.device)
+    try:
+        yield make_mesh(data=dist.get_world_size(), table=1), dist.get_rank() == 0
+    finally:
+        shutdown()
 
 
 def _decode(key: int, k: int) -> str:
@@ -123,25 +149,39 @@ def _cmd_count(args) -> int:
     from .device.pipeline import count_file
 
     ks = tuple(int(x) for x in str(args.k).split(","))
-    if args.profile and len(ks) > 1:
+    if args.profile and (args.sharded or len(ks) > 1):
         raise SystemExit(
-            "--profile instruments the single-k flat stream (use one k)"
+            "--profile instruments the single-k flat stream "
+            "(drop --sharded / use one k)"
         )
     meter = _profile_meter(args)
-    n_bases, spec = count_file(
-        _paths(args),
-        k=ks if len(ks) > 1 else ks[0],
+    kw = dict(
         batch_size=args.batch_size,
         bucketed=args.bucketed,
-        sparse_format="arrays",
         quality_cutoff=args.quality_cutoff,
         host_workers=args.host_workers,
         checkpoint_every=args.checkpoint_every,
         checkpoint_path=args.checkpoint,
         resume_from=args.resume_from,
-        meter=meter,
-        device=args.device,
     )
+    with _sharded(args) as (mesh, prints):
+        if mesh is None:
+            n_bases, spec = count_file(
+                _paths(args), k=ks if len(ks) > 1 else ks[0],
+                sparse_format="arrays", meter=meter, device=args.device, **kw
+            )
+        elif len(ks) > 1:
+            from .parallel import sharded_multi_k_count_file
+
+            n_bases, spec = sharded_multi_k_count_file(
+                _paths(args), ks, mesh, **kw
+            )
+        else:
+            from .parallel import sharded_count_file
+
+            n_bases, spec = sharded_count_file(_paths(args), ks[0], mesh, **kw)
+    if not prints:
+        return 0
     if len(ks) > 1:
         _report_multi_k(spec, n_bases, ks, args)
         return 0
@@ -169,10 +209,13 @@ def _cmd_spectrum(args) -> int:
 
     from .device.tiling import genome_spectrum
 
-    n_bases, spec = genome_spectrum(
-        args.path, k=args.k, tile_len=args.tile_len, sparse_format="arrays",
-        device=args.device,
-    )
+    with _sharded(args) as (mesh, prints):
+        n_bases, spec = genome_spectrum(
+            args.path, k=args.k, tile_len=args.tile_len,
+            sparse_format="arrays", mesh=mesh, device=args.device,
+        )
+    if not prints:
+        return 0
     keys, counts = _sparse_pairs(spec)
     print(f"# {n_bases} bases, {len(keys)} distinct {args.k}-mers",
           file=sys.stderr)
@@ -192,14 +235,17 @@ def _cmd_minimizers(args) -> int:
     from .device.pipeline import minimizer_spectrum_file
 
     meter = _profile_meter(args)
-    n_bases, (keys, counts) = minimizer_spectrum_file(
-        args.path, k=args.k, w=args.w, batch_size=args.batch_size,
-        meter=meter,
-        checkpoint_every=args.checkpoint_every,
-        checkpoint_path=args.checkpoint,
-        resume_from=args.resume_from,
-        device=args.device,
-    )
+    with _sharded(args) as (mesh, prints):
+        n_bases, (keys, counts) = minimizer_spectrum_file(
+            args.path, k=args.k, w=args.w, batch_size=args.batch_size,
+            mesh=mesh, meter=meter,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_path=args.checkpoint,
+            resume_from=args.resume_from,
+            device=args.device,
+        )
+    if not prints:
+        return 0
     if meter is not None:
         print(meter.report(), file=sys.stderr)
     print(
@@ -235,9 +281,7 @@ def _cmd_hash_count(args) -> int:
     from .device.pipeline import hash_count_file
 
     meter = _profile_meter(args)
-    n_bases, total, fwd, table = hash_count_file(
-        _paths(args),
-        k=args.k,
+    kw = dict(
         table_bits=args.table_bits,
         batch_size=args.batch_size,
         host_workers=args.host_workers,
@@ -245,8 +289,20 @@ def _cmd_hash_count(args) -> int:
         checkpoint_path=args.checkpoint,
         resume_from=args.resume_from,
         meter=meter,
-        device=args.device,
     )
+    with _sharded(args) as (mesh, prints):
+        if mesh is None:
+            n_bases, total, fwd, table = hash_count_file(
+                _paths(args), k=args.k, device=args.device, **kw
+            )
+        else:
+            from .parallel import sharded_hash_count_file
+
+            n_bases, total, fwd, table = sharded_hash_count_file(
+                _paths(args), args.k, mesh, **kw
+            )
+    if not prints:
+        return 0
     if meter is not None:
         print(meter.report(), file=sys.stderr)
     print(
@@ -324,12 +380,17 @@ def main(argv=None) -> int:
     p.add_argument("--quality-cutoff", type=int, default=None,
                    help="mask bases below this Phred score before counting "
                         "(FASTQ)")
+    p.add_argument("--sharded", action="store_true",
+                   help="exact spectrum over every rank (per-rank sorts)")
     _add_output_flags(p, "spectrum")
     p.set_defaults(fn=_cmd_count)
 
     p = sub.add_parser("hash-count", help="hash count table (headline pipeline)")
     _add_common_flags(p, batch_size=65536)
     p.add_argument("--table-bits", type=int, default=16)
+    p.add_argument("--sharded", action="store_true",
+                   help="run the hash pipeline over every rank (table "
+                        "sharded by reduce-scatter; same result)")
     p.add_argument("-o", "--output", help="write table .npz")
     p.set_defaults(fn=_cmd_hash_count)
 
@@ -347,6 +408,8 @@ def main(argv=None) -> int:
     p.add_argument("-w", type=int, required=True,
                    help="windows per sketch position")
     p.add_argument("--batch-size", type=int, default=4096)
+    p.add_argument("--sharded", action="store_true",
+                   help="shard the sketch over every rank")
     _add_device_flag(p)
     _add_stream_flags(p)
     _add_output_flags(p, "spectrum")
@@ -356,6 +419,8 @@ def main(argv=None) -> int:
     p.add_argument("path")
     p.add_argument("-k", type=int, required=True)
     p.add_argument("--tile-len", type=int, default=8192)
+    p.add_argument("--sharded", action="store_true",
+                   help="tile batches over every rank (halo tiling x mesh)")
     _add_device_flag(p)
     _add_output_flags(p, "spectrum")
     p.set_defaults(fn=_cmd_spectrum)

@@ -495,6 +495,35 @@ def _place_ascii(to_device, batch, quality: bool):
     )
 
 
+def _place_fn(to_device, min_len: int, packed: bool, quality: bool = False):
+    """A driver's ``place(batch)``: ``(num_bases, payload, layout,
+    file_offset)``, the payload the wire (``layout`` its ``WireLayout``)
+    or ASCII ``(seqs, lengths, quals | None)`` (``layout`` None), and
+    None where the batch's reads are shorter than ``min_len``: no window
+    fits, and its bases still count."""
+
+    def place(batch):
+        if batch.max_len < min_len:
+            return batch.num_bases, None, None, batch.file_offset
+        if packed:
+            # no read padding: the short last batch ships as it is
+            buf, layout = batch.wire_frame(batch.num_reads)
+            return batch.num_bases, to_device(buf), layout, batch.file_offset
+        payload = _place_ascii(to_device, batch, quality)
+        return batch.num_bases, payload, None, batch.file_offset
+
+    return place
+
+
+def _device_args(payload, layout, qthresh: Optional[int] = None):
+    """``(data, lengths, vbits)`` of a placed payload: the wire unwired
+    (``layout`` given), or ASCII with its low-quality bases masked."""
+    if layout is not None:
+        codes, lengths, vbits, vrow_idx, vrows = unwire(payload, layout)
+        return codes, lengths, resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
+    return (*_masked_ascii(payload, qthresh), None)
+
+
 def _masked_ascii(payload, qthresh: Optional[int]):
     """``(seqs, lengths)`` of a placed ASCII payload, every base whose
     quality byte is below ``qthresh`` (``phred_offset + quality_cutoff``)
@@ -663,23 +692,9 @@ def count_file(
         normalized, ckpt_mode, start_offset, checkpoint_every,
         with_quals=quality, bucketed=bucketed,
     )
-    to_device = _uploader(dev)
-
-    def _place(batch):
-        """``(num_bases, payload, layout, file_offset)``: the wire and its
-        layout, or ASCII ``(seqs, lengths, quals | None)`` and None."""
-        if batch.max_len < k:
-            # no window fits; bases still count
-            return batch.num_bases, None, None, batch.file_offset
-        if packed:
-            # no read padding: the short last batch ships as it is
-            buf, layout = batch.wire_frame(batch.num_reads)
-            return batch.num_bases, to_device(buf), layout, batch.file_offset
-        payload = _place_ascii(to_device, batch, quality)
-        return batch.num_bases, payload, None, batch.file_offset
-
+    place = _place_fn(_uploader(dev), k, packed, quality)
     placed = _placed_stream(
-        batches, _place, dev, packed, meter, double_buffer, checkpoint_every,
+        batches, place, dev, packed, meter, double_buffer, checkpoint_every,
         _save_checkpoint, ship_quals=quality,
     )
     for nb, payload, layout, _offset in placed:
@@ -687,12 +702,7 @@ def count_file(
         if payload is None:
             continue
         t0 = _time.perf_counter() if meter is not None else 0.0
-        if packed:
-            codes, lengths, vbits, vrow_idx, vrows = unwire(payload, layout)
-            vbits = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
-            args = (codes, lengths, vbits)
-        else:
-            args = (*_masked_ascii(payload, qthresh), None)
+        args = _device_args(payload, layout, qthresh)
         if accumulate_dense:
             table += spectrum_step(*args)
         else:
@@ -964,15 +974,14 @@ def multi_k_count_file(
 # ---------------------------------------------------------------------------
 
 
-def _minimizer_keys_fn(k: int, w: int, packed: bool, normalized: bool,
-                       on_cuda: bool):
-    """Flat masked (hi | None, lo) sketch keys of one placed batch
-    ``(data, lengths, vbits)``: over the key-plane kernel's planes on the
-    card, over :mod:`kmers` windows (the kernel's plain route) on the
-    CPU."""
+def _minimizer_windows_fn(k: int, w: int, packed: bool, normalized: bool,
+                          on_cuda: bool):
+    """The sketch's windows of one placed batch ``(data, lengths,
+    vbits)``: over the key-plane kernel's planes on the card, over
+    :mod:`kmers` windows (the kernel's plain route) on the CPU."""
     from . import minimizers as _minimizers
 
-    def keys(data, lengths, vbits):
+    def windows(data, lengths, vbits):
         if on_cuda:
             if packed:
                 khi, klo, _, _ = _kernels.canonical_key_planes_packed(
@@ -988,9 +997,18 @@ def _minimizer_keys_fn(k: int, w: int, packed: bool, normalized: bool,
             win = _minimizers.window_minimizers(
                 seqs, lengths, k, w, normalized=normalized, precoded=packed
             )
-        return _window_keys(win, k)
+        return win
 
-    return keys
+    return windows
+
+
+def _minimizer_keys_fn(k: int, w: int, packed: bool, normalized: bool,
+                       on_cuda: bool):
+    """Flat masked (hi | None, lo) sketch keys of one placed batch."""
+    windows = _minimizer_windows_fn(k, w, packed, normalized, on_cuda)
+    return lambda data, lengths, vbits: _window_keys(
+        windows(data, lengths, vbits), k
+    )
 
 
 def minimizer_spectrum_file(
@@ -1028,16 +1046,28 @@ def minimizer_spectrum_file(
     identical.  Checkpoints are of kind ``minimizer`` with ``w`` in their
     meta, the files JAX's driver writes and resumes.  ``meter``,
     ``double_buffer``, ``host_workers``, ``spill_dir`` and ``device`` act
-    as in :func:`count_file`.  ``mesh=`` raises ``NotImplementedError``.
+    as in :func:`count_file`.
+
+    ``mesh`` (a ``parallel.make_mesh`` mesh on the device ``device``
+    names, else ``ValueError``) counts the sketch over its ``data`` dim:
+    each rank frames its own input (see
+    ``parallel.sharded_hash_count_file``) as ASCII (``packed=True`` with it
+    raises ``ValueError``, as in JAX) into a
+    ``parallel.ShardedSpectrumAccumulator``, and every rank returns the
+    whole sketch.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "minimizer_spectrum_file(mesh=...) comes with the 'parallel/' "
-            "item of ROADMAP.md"
-        )
     if packed is None:
-        packed = True
-    dev = _resolve_device(device)
+        packed = mesh is None
+    elif packed and mesh is not None:
+        raise ValueError(
+            "the mesh minimizer path rides ASCII planes; drop packed=True "
+            "or mesh="
+        )
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device_for
+
+        mesh_device_for(mesh, device)
+    dev = _resolve_device(device) if mesh is None else None
 
     from ..checkpoint import (
         counting_meta,
@@ -1059,6 +1089,20 @@ def minimizer_spectrum_file(
         resume_from=resume_from, host_workers=host_workers,
         validate=_check_w, normalized=normalized,
     )
+    def _save(offset, n_bases, acc):
+        keys, counts = acc.finish()  # flushes; the accumulator stays live
+        save_stream_checkpoint(
+            checkpoint_path, "minimizer", k, offset, n_bases,
+            {"keys": keys, "counts": counts}, input_path=str(path),
+            meta={"w": np.int32(w), **counting_meta(normalized=normalized)},
+        )
+
+    if mesh is not None:
+        return _minimizer_spectrum_sharded(
+            path, k, w, mesh, batch_size, max_len, normalized, sparse_format,
+            host_workers, spill_dir, ckpt_mode, ck, checkpoint_every,
+            checkpoint_path, resume_from, _save, meter, double_buffer,
+        )
     sparse = _count.SparseSpectrumAccumulator()
     n_bases = 0
     start_offset = 0
@@ -1068,12 +1112,7 @@ def minimizer_spectrum_file(
         sparse.restore(ck["arrays"]["keys"], ck["arrays"]["counts"])
 
     def _save_checkpoint(offset):
-        keys, counts = sparse.finish()  # flushes; the accumulator stays live
-        save_stream_checkpoint(
-            checkpoint_path, "minimizer", k, offset, n_bases,
-            {"keys": keys, "counts": counts}, input_path=str(path),
-            meta={"w": np.int32(w), **counting_meta(normalized=normalized)},
-        )
+        _save(offset, n_bases, sparse)
 
     keys_step = _minimizer_keys_fn(k, w, packed, normalized, dev.type == "cuda")
     t_wall0 = _time.perf_counter()
@@ -1081,21 +1120,9 @@ def minimizer_spectrum_file(
         path, batch_size, max_len, host_workers, spill_dir, packed,
         normalized, ckpt_mode, start_offset, checkpoint_every,
     )
-    to_device = _uploader(dev)
-
-    def _place(batch):
-        """``(num_bases, payload, layout, file_offset)`` as in
-        :func:`count_file`."""
-        if batch.max_len < k + w - 1:
-            return batch.num_bases, None, None, batch.file_offset
-        if packed:
-            buf, layout = batch.wire_frame(batch.num_reads)
-            return batch.num_bases, to_device(buf), layout, batch.file_offset
-        payload = _place_ascii(to_device, batch, False)[:2]
-        return batch.num_bases, payload, None, batch.file_offset
-
+    place = _place_fn(_uploader(dev), k + w - 1, packed)
     placed = _placed_stream(
-        batches, _place, dev, packed, meter, double_buffer, checkpoint_every,
+        batches, place, dev, packed, meter, double_buffer, checkpoint_every,
         _save_checkpoint,
     )
     for nb, payload, layout, _offset in placed:
@@ -1103,17 +1130,65 @@ def minimizer_spectrum_file(
         if payload is None:
             continue
         t0 = _time.perf_counter() if meter is not None else 0.0
-        if packed:
-            codes, lengths, vbits, vrow_idx, vrows = unwire(payload, layout)
-            vbits = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
-            sparse.add(*keys_step(codes, lengths, vbits))
-        else:
-            sparse.add(*keys_step(payload[0], payload[1], None))
+        sparse.add(*keys_step(*_device_args(payload, layout)))
         if meter is not None:
             meter.add("dispatch", _time.perf_counter() - t0, items=nb)
 
     t_drain = _time.perf_counter()
     keys, counts = sparse.finish()
+    result = (
+        _count.spectrum_arrays_to_dict(keys, counts)
+        if sparse_format == "dict" else (keys, counts)
+    )
+    if meter is not None:
+        now = _time.perf_counter()
+        meter.add("drain", now - t_drain)
+        meter.add("wall", now - t_wall0, items=n_bases)
+    return n_bases, result
+
+
+def _minimizer_spectrum_sharded(
+    path, k, w, mesh, batch_size, max_len, normalized, sparse_format,
+    host_workers, spill_dir, ckpt_mode, ck, checkpoint_every,
+    checkpoint_path, resume_from, save, meter, double_buffer,
+):
+    """:func:`minimizer_spectrum_file` over a mesh (JAX's ``mesh``
+    branch): ASCII rows, the sketch's windows from the key-plane kernel on
+    the card, a ``parallel.ShardedSpectrumAccumulator``."""
+    from ..parallel.distributed import refuse_world_above_one
+    from ..parallel.exact import (
+        ShardedSpectrumAccumulator, _require_data_mesh, _stream_into,
+    )
+    from ..parallel.mesh import mesh_device
+
+    n_data = _require_data_mesh(mesh)
+    refuse_world_above_one(
+        "minimizer_spectrum_file(mesh=...)", mesh, path, checkpoint_every,
+        checkpoint_path, resume_from,
+    )
+    windows = _minimizer_windows_fn(
+        k, w, False, normalized, mesh_device(mesh).type == "cuda"
+    )
+    acc = ShardedSpectrumAccumulator(
+        mesh, k, normalized=normalized,
+        shard_lanes=_count.SPARSE_FLUSH_LANES,  # the flat driver's flush
+        window_fn=lambda s, l: windows(s, l, None),
+        window_lanes=lambda max_l: max(max_l - k - w + 2, 0),
+    )
+    start_offset = n_bases = 0
+    if ck is not None:
+        start_offset, n_bases = ck["file_offset"], ck["n_bases"]
+        acc.restore(ck["arrays"]["keys"], ck["arrays"]["counts"])
+    t_wall0 = _time.perf_counter()
+    n_bases = _stream_into(
+        acc, mesh, path, k + w - 1, -(-batch_size // n_data), max_len,
+        host_workers, spill_dir, False, normalized, False, False, ckpt_mode,
+        start_offset, checkpoint_every,
+        lambda offset, n_now: save(offset, n_now, acc), meter, double_buffer,
+        n_bases,
+    )
+    t_drain = _time.perf_counter()
+    keys, counts = acc.finish()
     result = (
         _count.spectrum_arrays_to_dict(keys, counts)
         if sparse_format == "dict" else (keys, counts)

@@ -306,9 +306,15 @@ def genome_spectrum(
 
     ``packed`` (default on) ships 2-bit tiles, else ASCII; results are
     identical.  ``device="cuda"`` runs the hand-written kernels and raises
-    when CUDA is absent; ``device="cpu"`` their plain versions.  ``mesh``
-    (sharding the tiles over devices) is not ported yet and raises
-    ``NotImplementedError``.
+    when CUDA is absent; ``device="cpu"`` their plain versions.
+
+    ``mesh`` (a ``parallel.make_mesh`` mesh on the device ``device``
+    names, else ``ValueError``) shares each block's tiles out over its
+    ``data`` dim: every rank streams the same blocks (``batch_tiles``
+    rounded up to the dim with inert zero tiles) of ASCII tiles, extracts
+    its own rows' keys (the key-plane kernel on the card) into a
+    ``parallel.ShardedSpectrumAccumulator``, and every rank returns the
+    whole spectrum; ``sparse_format="device"`` raises ``ValueError``.
     """
     from .pipeline import _resolve_device, _uploader
 
@@ -320,9 +326,12 @@ def genome_spectrum(
             "use dense=False for larger k"
         )
     if mesh is not None:
-        raise NotImplementedError(
-            "genome_spectrum(mesh=...) comes with the 'parallel/' item of "
-            "ROADMAP.md"
+        from ..parallel.mesh import mesh_device_for
+
+        mesh_device_for(mesh, device)
+        return _genome_spectrum_sharded(
+            path, k, tile_len, batch_tiles, canonical, normalized, dense,
+            sparse_format, mesh,
         )
     if packed is None:
         packed = True
@@ -377,3 +386,32 @@ def genome_spectrum(
     if sparse_format == "arrays":
         return n_bases, (keys, counts)
     return n_bases, _count.spectrum_arrays_to_dict(keys, counts)
+
+
+def _genome_spectrum_sharded(
+    path, k, tile_len, batch_tiles, canonical, normalized, dense,
+    sparse_format, mesh,
+):
+    """:func:`genome_spectrum` over a mesh (JAX's ``mesh`` branch)."""
+    from ..parallel.exact import ShardedSpectrumAccumulator, _require_data_mesh
+
+    if sparse_format == "device":
+        raise ValueError("sparse_format='device' is single-device only")
+    n_data = _require_data_mesh(mesh)
+    # extra rows are zero tiles, whose windows are all invalid
+    batch_tiles = -(-batch_tiles // n_data) * n_data
+    acc = ShardedSpectrumAccumulator(
+        mesh, k, canonical=canonical, normalized=normalized,
+        shard_lanes=_count.SPARSE_FLUSH_LANES,  # the flat path's flush
+    )
+    stream = _TileStream(path, k, tile_len, batch_tiles)
+    for tiles, lengths in stream:
+        acc.add(*acc.place(tiles, lengths))
+    keys, counts = acc.finish()
+    if dense:
+        table = np.zeros(4**k, np.int64)
+        table[keys.astype(np.int64)] = counts
+        return stream.n_bases, table
+    if sparse_format == "arrays":
+        return stream.n_bases, (keys, counts)
+    return stream.n_bases, _count.spectrum_arrays_to_dict(keys, counts)

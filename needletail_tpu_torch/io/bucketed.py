@@ -16,12 +16,12 @@ records).
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..batch import ReadBatch
-from .fast_batch import fast_read_batches
+from .fast_batch import fast_read_batches, fast_read_batches_range
 
 __all__ = ["bucketed_read_batches", "DEFAULT_BUCKETS"]
 
@@ -58,10 +58,13 @@ def bucketed_read_batches(
     buckets: Sequence[int] = DEFAULT_BUCKETS,
     with_quals: bool = True,
     max_len: Optional[int] = None,
+    byte_range: Optional[Tuple[int, int]] = None,
 ) -> Iterator[ReadBatch]:
     """Stream ``ReadBatch``es grouped by length bucket.
 
-    Single-file: a list of paths raises ``ValueError``.
+    Single-file: a list of paths raises ``ValueError``.  ``byte_range``
+    ``(start, end)`` buckets only that record-aligned range of an
+    uncompressed file.
 
     Every yielded batch's width is the smallest bucket holding all its
     reads, so device FLOPs scale with real bases instead of the corpus's
@@ -87,9 +90,16 @@ def bucketed_read_batches(
             acc = accs[width] = _BucketAcc(width, batch_size, emit_quals)
         return acc
 
-    for batch in fast_read_batches(
-        path, batch_size=batch_size, max_len=None, with_quals=with_quals
-    ):
+    if byte_range is None:
+        source = fast_read_batches(
+            path, batch_size=batch_size, max_len=None, with_quals=with_quals
+        )
+    else:
+        source = fast_read_batches_range(
+            path, *byte_range, batch_size=batch_size, max_len=None,
+            with_quals=with_quals,
+        )
+    for batch in source:
         if batch.quals is None:
             # FASTA source: never fabricate a zero quality plane
             emit_quals = False

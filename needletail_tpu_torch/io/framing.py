@@ -221,10 +221,13 @@ def _sync_forward(path: Union[str, Path], offset: int, fasta: bool) -> int:
 
 
 def split_fastx_ranges(
-    path: Union[str, Path], n: int
+    path: Union[str, Path],
+    n: int,
+    byte_range: Optional[Tuple[int, int]] = None,
 ) -> List[Tuple[int, int]]:
-    """Split an uncompressed FASTX file into ``n`` disjoint byte ranges
-    aligned to record starts, covering the file."""
+    """Split an uncompressed FASTX file, or its record-aligned
+    ``byte_range`` ``(start, end)``, into ``n`` disjoint byte ranges
+    aligned to record starts, covering it."""
     size = os.path.getsize(path)
     with open(path, "rb") as f:
         first = f.read(1)
@@ -233,11 +236,12 @@ def split_fastx_ranges(
     fasta = first == b">"
     if first not in (b">", b"@"):
         raise ParseError.new_unknown_format(first[0])
-    cuts = [0]
+    start, end = (0, size) if byte_range is None else byte_range
+    cuts = [start]
     for i in range(1, n):
-        cut = _sync_forward(path, size * i // n, fasta)
-        cuts.append(max(cut, cuts[-1]))
-    cuts.append(size)
+        cut = _sync_forward(path, start + (end - start) * i // n, fasta)
+        cuts.append(min(max(cut, cuts[-1]), end))
+    cuts.append(end)
     return [(cuts[i], cuts[i + 1]) for i in range(n)]
 
 
@@ -249,8 +253,10 @@ def parallel_read_batches(
     with_quals: bool = True,
     packed: bool = False,
     normalized: bool = True,
+    byte_range: Optional[Tuple[int, int]] = None,
 ) -> Iterator[ReadBatch]:
-    """Frame an uncompressed FASTX file with ``workers`` processes.
+    """Frame an uncompressed FASTX file, or its record-aligned
+    ``byte_range`` ``(start, end)``, with ``workers`` processes.
 
     ``workers <= 1`` (or stdin) frames in this process.  With an explicit
     ``max_len`` the planes travel through a shared-memory segment pool
@@ -262,6 +268,12 @@ def parallel_read_batches(
         with_quals = False
     # quantize before sizing the pool: workers apply the same rule
     max_len = _effective_packed_max_len(packed, max_len)
+    if byte_range is not None and workers <= 1:
+        yield from fast_read_batches_range(
+            str(path), *byte_range, batch_size=batch_size, max_len=max_len,
+            with_quals=with_quals, packed=packed, normalized=normalized,
+        )
+        return
     if workers <= 1 or str(path) == "-":
         yield from fast_read_batches(
             str(path), batch_size=batch_size, max_len=max_len,
@@ -279,7 +291,7 @@ def parallel_read_batches(
             "byte-range framing needs an uncompressed file; use "
             "fast_read_batches(prefetch=True) for compressed input"
         )
-    ranges = split_fastx_ranges(path, workers)
+    ranges = split_fastx_ranges(path, workers, byte_range)
     # spawn, never fork: the consumer runs threads (feeders, CUDA)
     ctx = mp.get_context("spawn")
     q = ctx.Queue(maxsize=4 * workers)
@@ -390,6 +402,7 @@ def _make_batch_source(
     spill_dir: Optional[str] = None,
     packed: bool = False,
     normalized: bool = True,
+    byte_range: Optional[Tuple[int, int]] = None,
 ):
     """The drivers' input front: ``(batches, host_workers)``.
 
@@ -397,7 +410,10 @@ def _make_batch_source(
     plain file.  Compressed input streams in one process unless the caller
     opts into decode-to-spill with an explicit ``host_workers > 1`` or a
     ``spill_dir``.  A list of paths chains every file through one source.
-    An explicit ``max_len`` rounds up to a multiple of 8.
+    An explicit ``max_len`` rounds up to a multiple of 8.  ``byte_range``
+    ``(start, end)`` frames only that record-aligned range of one
+    uncompressed file (a compressed one raises ``ValueError``), through
+    the same pool.
     """
     if isinstance(path, (list, tuple)):
         if len(path) == 1:
@@ -417,6 +433,14 @@ def _make_batch_source(
             return chained(), (host_workers or 0)
 
     max_len = _quantize_max_len(max_len)
+    if byte_range is not None:
+        if host_workers is None:
+            host_workers = auto_host_workers()
+        return parallel_read_batches(
+            path, workers=host_workers, batch_size=batch_size,
+            max_len=max_len, with_quals=with_quals, packed=packed,
+            normalized=normalized, byte_range=byte_range,
+        ), host_workers
     compressed = False
     if str(path) != "-":
         try:

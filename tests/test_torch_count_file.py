@@ -161,8 +161,8 @@ def test_max_len_below_k_counts_bases_only(tmp_path, packed):
 
 
 def test_not_ported_options_raise(tmp_path):
-    """The refusals of the ported options, as JAX refuses them, and the
-    one option still not ported (a mesh)."""
+    """The refusals of the ported options, as JAX refuses them, and a
+    mesh that is no ``DeviceMesh``."""
     for kw in (dict(quality_cutoff=20), dict(bucketed=True)):
         with pytest.raises(ValueError, match="packed transport"):
             tpipe.count_file(FQ, 21, packed=True, device="cpu", **kw)
@@ -170,7 +170,7 @@ def test_not_ported_options_raise(tmp_path):
     fa.write_bytes(b">a\n" + b"ACGT" * 10 + b"\n")
     with pytest.raises(ValueError, match="quality_cutoff needs FASTQ"):
         tpipe.count_file(str(fa), 21, quality_cutoff=20, device="cpu", **RUN)
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpipe.minimizer_spectrum_file(FQ, 21, 11, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="bucketed/dense"):
         tpipe.count_file(FQ, (4, 21), bucketed=True, device="cpu")

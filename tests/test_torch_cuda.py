@@ -498,3 +498,42 @@ def test_cuda_bucketed_matches_plain(cuda_device, tmp_path):
         assert got[0] == want[0]
         for a, b in zip(got[1], want[1]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda_device):
+    from needletail_tpu_torch.parallel import make_mesh
+    from needletail_tpu_torch.parallel.distributed import initialize, shutdown
+
+    initialize(device="cuda")
+    try:
+        yield make_mesh(data=1, table=1)
+    finally:
+        shutdown()
+
+
+def test_cuda_sharded_drivers_match_plain(nccl_world_of_one, tmp_path):
+    """The sharded drivers on a NCCL world of one, through the hand
+    kernels, equal to the flat drivers' plain versions."""
+    from needletail_tpu_torch.device import kernels as K
+    from needletail_tpu_torch.device.pipeline import count_file, hash_count_file
+    from needletail_tpu_torch.parallel import (
+        sharded_count_file, sharded_hash_count_file, sharded_multi_k_count_file,
+    )
+
+    mesh = nccl_world_of_one
+    kw = dict(batch_size=512, max_len=128, host_workers=1)
+    K.reset_launches()
+    got = sharded_hash_count_file(FQ, 21, mesh, **kw)
+    want = hash_count_file(FQ, 21, device="cpu", **kw)
+    assert got[:3] == want[:3] == GOLD
+    assert np.array_equal(got[3], want[3])
+    got = sharded_count_file(FQ, 21, mesh, **kw)
+    want = count_file(FQ, 21, device="cpu", sparse_format="arrays", **kw)
+    assert got[0] == want[0]
+    for a, b in zip(got[1], want[1]):
+        assert np.array_equal(a, b)
+    n, spec = sharded_multi_k_count_file(FQ, (4, 21, 31), mesh, **kw)
+    assert n == GOLD[0] and int(spec[4].sum()) == 243_982
+    for name in ("hash_keys", "histogram16", "key_planes", "compact_slots"):
+        assert K.LAUNCHES[name] > 0, name

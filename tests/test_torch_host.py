@@ -5,8 +5,9 @@ A subprocess refuses every import of ``needletail_tpu`` (and of JAX) through
 a ``sys.meta_path`` finder installed by ``sitecustomize``, so spawned
 framing workers refuse them too; in it the port imports every module,
 imports ``chip_smoke`` and runs the hash, exact, multi-k, genome,
-quality, bucketed, minimizer and filter drivers and the ``filter`` and
-``minimizers`` commands on the CPU.  The port's copies
+quality, bucketed, minimizer and filter drivers, the ``filter`` and
+``minimizers`` commands, and ``hash-count --sharded`` and ``count
+--sharded`` in a world of one, on the CPU.  The port's copies
 of the framers, batches and codecs then produce the JAX package's batches,
 field for field, over every fixture.
 """
@@ -122,6 +123,18 @@ with contextlib.redirect_stdout(io.StringIO()) as printed:
 assert printed.getvalue().splitlines() == [
     '{"reads_in": 2000, "reads_kept": 1732}',
     "AAGAGCGTCGTGTAGGGAAAG\t586",
+], printed.getvalue()
+import needletail_tpu_torch.parallel  # noqa: F401
+
+with contextlib.redirect_stdout(io.StringIO()) as printed:
+    assert cli.main(["hash-count", fq, "-k", "21", "--sharded",
+                     "--device", "cpu", "--host-workers", "2"]) == 0
+    assert cli.main(["count", fq, "-k", "21", "--sharded", "--top", "1",
+                     "--device", "cpu", "--host-workers", "2"]) == 0
+assert printed.getvalue().splitlines() == [
+    '{"bases": 250000, "windows": 209965, "forward": 106181, "bins": 65536, '
+    '"nonzero_bins": 59947}',
+    "CTACACGACGCTCTTCCGATC\t104",
 ], printed.getvalue()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("needletail_tpu", "jax", "jaxlib"))

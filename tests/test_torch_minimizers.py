@@ -133,8 +133,10 @@ def test_refusals(reads):
         tm.window_minimizers(s, ln, 21, 0)
     with pytest.raises(ValueError, match="shorter than w"):
         tm.window_minimizers(s, ln, 21, 60)
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpipe.minimizer_spectrum_file(FQ, 21, 11, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="ASCII planes"):
+        tpipe.minimizer_spectrum_file(FQ, 21, 11, mesh=object(), packed=True)
 
 
 def _equal(got, want):

@@ -151,7 +151,7 @@ def test_genome_spectrum_device_flush_matches_jax(genome):
 
 
 def test_genome_spectrum_refusals(genome):
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tt.genome_spectrum(genome, 31, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="dense output"):
         tt.genome_spectrum(genome, 13, dense=True, device="cpu")
