@@ -86,17 +86,28 @@ Phases, each fatal on failure:
    (``needletail_tpu_torch.dryrun``); ``hash-count --sharded`` and
    ``count --sharded`` through the command line, printing what the flat
    commands print;
-15. the block-sort experiment (``needletail_tpu_torch.bench.exp_block_sort``):
+15. compressed input: ``bgzip`` of the 64M-base file and ``stats`` over
+   it through the command line (512,000 reads, 64M bases, 256 x the
+   one-copy composition); ``hash_count_file`` over the BGZF file with
+   default options (single-stream decode) and ``count_file(k=21,
+   host_workers=4)`` (decode-to-spill, whose fallback to single-stream
+   framing is an error here), each equal to the uncompressed run and
+   through its kernels (launch counts and a ``torch.profiler`` view), with
+   both walls (best of 2, alternating) and metered ``frame`` and ``wall``
+   beside the uncompressed runs'; then the host surface's canonical
+   ``bit_kmers`` spectrum of ``28S.fasta`` at k=31 equal to ``count_file``
+   on the card;
+16. the block-sort experiment (``needletail_tpu_torch.bench.exp_block_sort``):
    checked against the plain sort, then timed beside its plain version and
    ``torch.sort``; these are the block sort's times in the kernels line;
-16. each other kernel's time beside its plain version's, its bound and,
+17. each other kernel's time beside its plain version's, its bound and,
    where one PyTorch call computes the same function, that call's, at the
    main paths' shapes (CUDA events around calls queued behind a spin, so
    the card's time and not the host's), the histogram also on one hot key
    and on 90% invalid keys, the compaction also on its second cascade
    pass, and the times of the flush's sort and of its whole run count
    (``unique_counts``: the sort, run heads and lengths);
-17. stop every process the run started (the framing pool's resource
+18. stop every process the run started (the framing pool's resource
    tracker) and fail if a child is still alive; then a
    ``{"kernels": [...]}`` line (``launches_by_path`` counts each kernel's
    launches on every path above that runs it) and the last line
@@ -126,6 +137,7 @@ GOLD_TOTAL_K21 = 209_965
 GOLD_FWD_K21 = 106_181
 # 28S.fasta: bases, and canonical 31-mers in all and kept forward
 GOLD_28S = (738_580, 718_007, 350_983)
+GOLD_28S_DISTINCT = 283_237
 
 K = 21
 COUNT_KS = (21, 31)
@@ -839,6 +851,36 @@ def write_distinct_reads(path: Path, rng) -> None:
             f.write(b">r%d\n" % i + row.tobytes() + b"\n")
 
 
+def canonical_spectrum(seqs, k: int) -> tuple:
+    """Sorted ``(keys uint64, counts int64)`` of the canonical 2-bit
+    k-mers of byte strings, through the host surface: ``bitkmer.pack_kmers``
+    and its reverse complement, the integer minimum of the two as
+    ``bit_kmers(canonical_form=True)`` yields it, without a tuple a window."""
+    import numpy as np
+
+    from needletail_tpu_torch.bitkmer import _rc_values, pack_kmers
+
+    parts = [np.empty(0, np.uint64)]
+    for seq in seqs:
+        values, valid = pack_kmers(seq, k)
+        values = values[valid]
+        parts.append(np.minimum(values, _rc_values(values, k)))
+    keys, counts = np.unique(np.concatenate(parts), return_counts=True)
+    return keys, counts.astype(np.int64)
+
+
+def host_spectrum(path: Path, k: int) -> tuple:
+    """:func:`canonical_spectrum` of every record of a FASTA/FASTQ file,
+    parsed by the host surface (``parser.parse_fastx_file``)."""
+    from needletail_tpu_torch.parser import parse_fastx_file
+
+    reader = parse_fastx_file(path)
+    seqs = []
+    while (rec := reader.next()) is not None:
+        seqs.append(rec.seq())
+    return canonical_spectrum(seqs, k)
+
+
 def expect(result, copies: int, table1, what: str) -> None:
     import numpy as np
 
@@ -1436,6 +1478,33 @@ def run_multi_k(big: Path, small: Path, tmp: Path, card: str) -> dict:
             "bases_per_s": COPIES * GOLD_BASES / best}
 
 
+def named_in(prof: dict, kernels) -> dict:
+    """``{kernel: launches}`` that a :func:`device_profile` names of each
+    wrapper's kernel."""
+    return {
+        kernel: sum(n for call, _, n in prof["port_ms_calls"]
+                    if f"::{KERNEL_SYMBOL[kernel]}" in call)
+        for kernel in kernels
+    }
+
+
+def run_cli(*argv) -> tuple:
+    """``(stdout, '#' lines of stderr)`` of one port command, in process;
+    fails unless it returns 0."""
+    import contextlib
+    import io
+
+    from needletail_tpu_torch import cli
+
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        if cli.main(list(argv)) != 0:
+            raise AssertionError(f"cli {argv} failed")
+    return stdout.getvalue(), [
+        line for line in stderr.getvalue().splitlines() if line.startswith("#")
+    ]
+
+
 def launched(what: str, launches: dict, *names) -> None:
     for name in names:
         if launches[name] <= 0:
@@ -1680,12 +1749,8 @@ def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
     rides), the 5 Mbp genome at k=31 to its goldens, the dryrun, and
     ``hash-count --sharded`` and ``count --sharded`` through the command
     line, whose output equals the flat commands'."""
-    import contextlib
-    import io
-
     import torch.distributed as dist
 
-    from needletail_tpu_torch import cli
     from needletail_tpu_torch.device import kernels as K_
     from needletail_tpu_torch.device.pipeline import (
         count_file, hash_count_file, minimizer_spectrum_file,
@@ -1765,17 +1830,11 @@ def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
             # names (beside the wrappers' counts of that run) and the
             # collectives' device time; and of a run profiled without the
             # warm-up step, which loses the first records
-            def named_in(prof):
-                return {
-                    kernel: sum(n for call, _, n in prof["port_ms_calls"]
-                                if f"::{KERNEL_SYMBOL[kernel]}" in call)
-                    for kernel in kernels
-                }
-
-            named_cold = named_in(device_profile(sharded, warmup=False))
+            named_cold = named_in(device_profile(sharded, warmup=False),
+                                  kernels)
             K_.reset_launches()
             prof = device_profile(sharded)
-            named = named_in(prof)
+            named = named_in(prof, kernels)
             counted = {kernel: K_.LAUNCHES[kernel] for kernel in kernels}
             out["nccl"][name] = {key: prof[key] for key in (
                 "nccl_ms", "nccl_ms_calls", "device_ms", "wall_s")}
@@ -1817,16 +1876,6 @@ def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
         shutdown()
 
     # the command line starts and ends its own world of one
-    def run_cli(*argv):
-        stdout, stderr = io.StringIO(), io.StringIO()
-        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
-            if cli.main(list(argv)) != 0:
-                raise AssertionError(f"cli {argv} failed")
-        return stdout.getvalue(), [
-            line for line in stderr.getvalue().splitlines()
-            if line.startswith("#")
-        ]
-
     for argv in (("hash-count", str(small), "-k", str(K)),
                  ("count", str(FA_28S), "-k", "31", "--top", "3")):
         flat = run_cli(*argv, "--device", "cuda")
@@ -1837,6 +1886,153 @@ def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
             raise AssertionError(f"cli {argv[0]} --sharded: {got} != {flat}")
         log(f"cli {' '.join(argv[:1])} --sharded: the flat command's output "
             f"{got[0].strip()!r} {got[1]}; launches {dict(K_.LAUNCHES)}")
+    return out
+
+
+class _CountedSpill:
+    """A ``spilled_input`` context that records the size of each file it
+    decoded (an uncompressed input passes through, unrecorded)."""
+
+    def __init__(self, inner, path, entered: list) -> None:
+        self.inner, self.path, self.entered = inner, str(path), entered
+
+    def __enter__(self):
+        plain = self.inner.__enter__()
+        if plain != self.path:
+            self.entered.append(Path(plain).stat().st_size)
+        return plain
+
+    def __exit__(self, *exc):
+        return self.inner.__exit__(*exc)
+
+
+def run_compressed_path(big: Path, tmp: Path, table1, card: str) -> dict:
+    """Phase 15: compressed input through the hand kernels.  ``bgzip`` the
+    64M-base file and ``stats`` it through the command line; then
+    ``hash_count_file`` over the BGZF file with default options (the
+    single-stream route) and ``count_file(k=21, host_workers=4)`` (the
+    decode-to-spill route), each equal to the uncompressed run, bin for
+    bin and key for key, with the route that ran recorded and the spill's
+    fallback to single-stream framing an error; their walls and metered
+    ``frame`` beside the uncompressed runs' (best of 2, alternating), each
+    kernel named in a device profile; and the host surface's canonical
+    ``bit_kmers`` spectrum of ``28S.fasta`` at k=31 equal to
+    ``count_file`` on the card."""
+    import warnings
+
+    import numpy as np
+
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.pipeline import count_file, hash_count_file
+    from needletail_tpu_torch.io import spill as spill_mod
+    from needletail_tpu_torch.utils.profiling import ThroughputMeter
+
+    out = {"launches": {}, "walls": {}, "metered_s": {}, "profiled": {}}
+    bgz = tmp / "reads_x256.fq.bgz"
+    t0 = time.perf_counter()
+    _, said = run_cli("bgzip", str(big), "-o", str(bgz))
+    out["bgzip_s"] = time.perf_counter() - t0
+    if said != [f"# {big.stat().st_size} bytes -> {bgz}"]:
+        raise AssertionError(f"bgzip said {said}")
+    out["bytes"] = {"plain": big.stat().st_size, "bgzf": bgz.stat().st_size}
+    log(f"bgzip: {out['bytes']['plain']} bytes -> {out['bytes']['bgzf']} "
+        f"bytes of BGZF in {out['bgzip_s']:.4f} s ({card})")
+
+    one = json.loads(run_cli("stats", str(FQ), "--composition")[0])
+    t0 = time.perf_counter()
+    stats = json.loads(run_cli("stats", str(bgz), "--composition")[0])
+    out["stats_s"] = time.perf_counter() - t0
+    want = {"reads": 2000 * COPIES, "bases": GOLD_BASES * COPIES,
+            "composition": {b: n * COPIES
+                            for b, n in one["composition"].items()}}
+    got = {key: stats[key] for key in want}
+    if got != want:
+        raise AssertionError(f"stats over BGZF: {got} != {want}")
+    log(f"stats over BGZF: {stats['reads']} reads, {stats['bases']} bases, "
+        f"composition {stats['composition']} = {COPIES} x one copy; "
+        f"{out['stats_s']:.4f} s ({card})")
+
+    entered = []
+    real_spill = spill_mod.spilled_input
+    spill_mod.spilled_input = lambda path, *a, **kw: _CountedSpill(
+        real_spill(path, *a, **kw), path, entered)
+    kw = dict(sparse_format="arrays")
+    lanes = {
+        "hash": (lambda src, meter=None: hash_count_file(
+            str(src), K, meter=meter), ("hash_keys", "histogram16"), 0),
+        "exact k=21": (lambda src, meter=None: count_file(
+            str(src), K, host_workers=4, spill_dir=str(tmp), meter=meter,
+            **kw), ("key_planes", "compact_slots"), 1),
+    }
+    try:
+        with warnings.catch_warnings():
+            # the spill's fallback would run another route than named
+            warnings.filterwarnings(
+                "error", message="falling back to single-stream framing")
+            for name, (lane, kernels, spills) in lanes.items():
+                want = lane(big)
+                del entered[:]
+                K_.reset_launches()
+                got = lane(bgz)
+                launches = dict(K_.LAUNCHES)
+                if len(entered) != spills:
+                    raise AssertionError(f"bgzf {name}: {len(entered)} "
+                                         f"spills, the route needs {spills}")
+                expect_same(got, want, f"bgzf {name}")
+                if name == "hash":
+                    expect(got, COPIES, table1, "bgzf hash")
+                launched(f"bgzf {name}", launches, *kernels)
+                out["launches"][name] = launches
+                walls = {"plain": float("inf"), "bgzf": float("inf")}
+                for side in ("plain", "bgzf", "bgzf", "plain"):
+                    t0 = time.perf_counter()
+                    expect_same(lane(bgz if side == "bgzf" else big), want,
+                                f"timed bgzf {name}")
+                    walls[side] = min(walls[side], time.perf_counter() - t0)
+                frame = {}
+                for side, src in (("plain", big), ("bgzf", bgz)):
+                    meter = ThroughputMeter()
+                    expect_same(lane(src, meter), want, f"metered {name}")
+                    frame[side] = meter.as_dict()
+                K_.reset_launches()
+                prof = device_profile(lambda: lane(bgz))
+                named = named_in(prof, kernels)
+                counted = {k: K_.LAUNCHES[k] for k in kernels}
+                missing = [k for k in kernels if not named[k]]
+                if missing:
+                    raise AssertionError(f"bgzf {name}: the profile names "
+                                         f"no launch of {missing}")
+                out["walls"][name] = walls
+                out["metered_s"][name] = {
+                    side: {stage: stages.get(stage, {}).get("s")
+                           for stage in ("frame", "wall")}
+                    for side, stages in frame.items()}
+                out["profiled"][name] = {"named": named, "counted": counted}
+                log(f"bgzf {name}: equal to the uncompressed run; spilled "
+                    f"{entered[:1]} bytes; launches {launches}; best of 2 "
+                    f"{walls['bgzf']:.4f} s against {walls['plain']:.4f} s "
+                    f"uncompressed ({card}); metered stages {json.dumps(frame)}; "
+                    f"profile names {named}, counted {counted}; device "
+                    f"profile {json.dumps(prof)}")
+                del want, got
+    finally:
+        spill_mod.spilled_input = real_spill
+
+    t0 = time.perf_counter()
+    keys, counts = host_spectrum(FA_28S, 31)
+    host_s = time.perf_counter() - t0
+    K_.reset_launches()
+    n, spec = count_file(str(FA_28S), 31, device="cuda", **kw)
+    launched("28S on the card", dict(K_.LAUNCHES), "key_planes")
+    expect_same(spec, (keys, counts), "host bit_kmers spectrum of 28S")
+    if (n, int(counts.sum()), len(keys)) != (GOLD_28S[0], GOLD_28S[1],
+                                             GOLD_28S_DISTINCT):
+        raise AssertionError(f"28S k=31: {n}, {counts.sum()}, {len(keys)}")
+    out["host_spectrum_s"] = host_s
+    log(f"host surface: the canonical bit_kmers spectrum of 28S.fasta at "
+        f"k=31 ({int(counts.sum())} windows, {len(keys)} distinct, "
+        f"{host_s:.4f} s on the host) equals count_file on the card, key "
+        f"for key ({card})")
     return out
 
 
@@ -2071,19 +2267,22 @@ def run() -> int:
         # ---- 14. the sharded paths on a NCCL world of one ---------------
         sharded = run_sharded_path(big, small, tmp, card)
 
-        # ---- 15. the block-sort experiment ------------------------------
+        # ---- 15. compressed input and the host surface ------------------
+        compressed = run_compressed_path(big, tmp, table1, card)
+
+        # ---- 16. the block-sort experiment ------------------------------
         K_.reset_launches()
         sort_exp = exp_block_sort.run(log=log)
         sort_launches = K_.LAUNCHES["block_sort"]
         if sort_launches <= 0:
             raise AssertionError("the block-sort experiment launched no sort")
 
-        # ---- 16. kernel times at the main paths' shapes ----------------
+        # ---- 17. kernel times at the main paths' shapes ----------------
         times = time_kernels(errors, str(big))
         times["block_sort"] = block_sort_times(errors, sort_exp)
         log("kernel times: " + json.dumps(times))
 
-    # ---- 17. nothing this run started outlives it ---------------------
+    # ---- 18. nothing this run started outlives it ---------------------
     running = child_processes()
     log(f"children before the stop: {running or 'none'}")
     left = stop_children()
@@ -2160,11 +2359,12 @@ def run() -> int:
            if n["compact_slots"]},
     }
     kernels[0]["launches_by_path"] = {"hash": launches["hash_keys"]}
-    for path, counts in sharded["launches"].items():
+    for path, counts in [*sharded["launches"].items(), *(
+            (f"bgzf {lane}", n) for lane, n in compressed["launches"].items())]:
         for entry in kernels:
             if counts.get(entry["name"], 0) > 0:
                 entry.setdefault("launches_by_path", {})[
-                    path if path.startswith(("cli", "dryrun"))
+                    path if path.startswith(("cli", "dryrun", "bgzf"))
                     else f"sharded {path}"
                 ] = counts[entry["name"]]
     for entry in kernels:
@@ -2201,6 +2401,11 @@ def run() -> int:
         "profiled_kernels": sharded["profiled"],
         "card": name, "power_limit": power,
     }))
+    log("compressed e2e: " + json.dumps({
+        key: compressed[key] for key in (
+            "bytes", "bgzip_s", "stats_s", "walls", "metered_s",
+            "host_spectrum_s")
+    } | {"card": name, "power_limit": power}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -9,6 +9,13 @@ is the port's own copy, and its native framer builds from
 ``csrc/framer.cpp``.
 
 Layout mirrors the JAX package:
+  * this module — the needletail-compatible surface, the same ``__all__``
+    as the JAX package's root: ``parse_fastx_file``/``parse_fastx_string``/
+    ``parse_fastx_reader``/``parse_fastx_stdin``, ``Record``,
+    ``FastxReader``, ``normalize_seq``, ``reverse_complement``,
+    ``decode_phred``, ``Sequence``, the error types and the host sequence
+    modules ``sequence``, ``kmer``, ``bitkmer`` and ``quality``.  It is
+    numpy only: importing it imports no ``torch``.
   * ``batch``, ``encoding``, ``errors``, ``parser``, ``io`` — the host side:
     batch planes and the one-buffer wire, the framers (``io.fast_batch``,
     ``io.native``), codecs, and the multi-worker front ``io.framing``.
@@ -25,6 +32,47 @@ Layout mirrors the JAX package:
     (one process a device; NCCL on the card, gloo on the CPU).
   * ``dryrun``           — the sharded paths on tiny shapes, on the
     current process group.
-  * ``cli``              — ``python -m needletail_tpu_torch.cli count`` and
-    ``hash-count``.
+  * ``cli``              — ``python -m needletail_tpu_torch.cli``: the
+    device commands ``count``, ``hash-count``, ``spectrum``,
+    ``minimizers`` and ``filter``, and the host commands ``stats``,
+    ``bgzip`` and ``convert``.
 """
+
+from . import bitkmer, errors, kmer, quality, sequence
+from .api import (
+    FastxReader,
+    NeedletailError,
+    Record,
+    decode_phred,
+    normalize_seq,
+    parse_fastx_file,
+    parse_fastx_string,
+    reverse_complement,
+)
+from .errors import ParseError, ParseErrorKind, PhredOffsetError
+from .seq_wrapper import Sequence
+from .parser import parse_fastx_reader, parse_fastx_stdin
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "parse_fastx_file",
+    "parse_fastx_string",
+    "parse_fastx_reader",
+    "parse_fastx_stdin",
+    "Record",
+    "FastxReader",
+    "NeedletailError",
+    "normalize_seq",
+    "reverse_complement",
+    "decode_phred",
+    "ParseError",
+    "ParseErrorKind",
+    "PhredOffsetError",
+    "Sequence",
+    "errors",
+    "sequence",
+    "kmer",
+    "bitkmer",
+    "quality",
+]

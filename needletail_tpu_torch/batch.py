@@ -18,12 +18,13 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 
-from .parser import FastxReader, SequenceRecord
+from .parser import FastxReader, SequenceRecord, parse_fastx_file
 
 __all__ = [
     "ReadBatch",
     "PackedReadBatch",
     "BatchReader",
+    "read_batches",
     "LazyIds",
     "length_wire_dtype",
     "WireLayout",
@@ -367,6 +368,22 @@ class PackedReadBatch:
         plane[self.vrow_idx] = self.vrows
         return plane
 
+    def unpack_host(self) -> np.ndarray:
+        """Per-base codes [B, L] uint8 (255 invalid) on host — for tests.
+        Out-of-length lanes are masked invalid (lean rows carry no pad
+        validity, so the dense twin's pad-invalid convention is restored
+        from ``lengths``)."""
+        from .encoding import unpack_codes_host
+
+        out = unpack_codes_host(self.codes, self.dense_vbits())
+        if self.vrows is not None:
+            pad = (
+                np.arange(out.shape[1], dtype=np.int32)[None, :]
+                >= self.lengths[:, None]
+            )
+            out[pad] = 255
+        return out
+
     def wire_frame(self, batch_size: int) -> "tuple[np.ndarray, WireLayout]":
         """Coalesce this batch into ONE contiguous uint8 wire buffer plus
         its static :class:`WireLayout` (see that class for the section
@@ -473,3 +490,19 @@ class BatchReader:
                 keep_ids=self._keep_ids,
             )
 
+
+def read_batches(
+    path: Union[str, "Path"],  # noqa: F821 - Path only for typing
+    batch_size: int = 1024,
+    max_len: Optional[int] = None,
+    pad_len_to: int = 128,
+) -> Iterator[ReadBatch]:
+    """Stream a FASTA/FASTQ file (any supported compression) as batches."""
+    return iter(
+        BatchReader(
+            parse_fastx_file(path),
+            batch_size=batch_size,
+            max_len=max_len,
+            pad_len_to=pad_len_to,
+        )
+    )

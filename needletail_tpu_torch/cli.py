@@ -7,10 +7,13 @@
     python -m needletail_tpu_torch.cli minimizers reads.fq -k 21 -w 11
     python -m needletail_tpu_torch.cli filter reads.fq kept.fq --min-quality 30
     python -m needletail_tpu_torch.cli spectrum genome.fa -k 31 -o spec.npz
+    python -m needletail_tpu_torch.cli stats reads.fq.gz --composition
+    python -m needletail_tpu_torch.cli bgzip reads.fq.gz -o reads.fq.bgz
+    python -m needletail_tpu_torch.cli convert reads.fq reads.fa --unix
 
-print what ``needletail-tpu hash-count``, ``count``, ``minimizers``,
-``filter`` and ``spectrum`` print; the host-only commands ``stats``,
-``bgzip`` and ``convert`` are not ported yet.
+print what the same ``needletail-tpu`` commands print and write the same
+bytes.  ``stats``, ``bgzip`` and ``convert`` run on the host alone: they
+take no ``--device`` and import no ``torch``.
 
 ``--sharded`` (``count``, ``hash-count``, ``minimizers``, ``spectrum``)
 runs the ``parallel`` drivers over every rank of a process group: a world
@@ -25,6 +28,7 @@ import argparse
 import contextlib
 import json
 import sys
+import time
 from typing import Optional
 
 
@@ -60,11 +64,6 @@ def _sharded(args):
         shutdown()
 
 
-def _decode(key: int, k: int) -> str:
-    """ASCII bases of a packed k-mer (first base most significant)."""
-    return "".join("ACGT"[(key >> (2 * (k - 1 - i))) & 3] for i in range(k))
-
-
 def _dump_spectrum(fh, keys, counts, k: int) -> None:
     """``kmer\\tcount`` TSV lines, keys ascending, decoded a chunk at a
     time with one table lookup."""
@@ -96,8 +95,10 @@ def _sparse_pairs(spec):
 def _top_kmers(keys, counts, k: int, top: int) -> None:
     import numpy as np
 
+    from .bitkmer import bitmer_to_bytes
+
     for i in np.argsort(counts)[::-1][:top]:
-        print(f"{_decode(int(keys[i]), k)}\t{int(counts[i])}")
+        print(f"{bitmer_to_bytes((int(keys[i]), k)).decode()}\t{int(counts[i])}")
 
 
 def _write_dump(dump: str, spectra) -> None:
@@ -141,6 +142,110 @@ def _report_multi_k(spec, n_bases, ks, args) -> None:
         for k, (keys, counts) in out.items():
             print(f"# top {args.top} for k={k}:")
             _top_kmers(keys, counts, k, args.top)
+
+
+def _cmd_stats(args) -> int:
+    import numpy as np
+
+    from .io.fast_batch import fast_read_batches
+
+    n_reads = n_bases = 0
+    min_len = None
+    max_len = 0
+    byte_counts = np.zeros(256, np.int64) if args.composition else None
+    t0 = time.perf_counter()
+    for b in fast_read_batches(args.path, batch_size=args.batch_size):
+        n = b.num_reads
+        n_reads += n
+        lens = b.lengths[:n]
+        n_bases += int(lens.sum())
+        if n:
+            lo = int(lens.min())
+            min_len = lo if min_len is None else min(min_len, lo)
+            max_len = max(max_len, int(lens.max()))
+        if byte_counts is not None and n:
+            # one bincount over the padded plane; bin 0 is exactly the
+            # padding (real bases are ASCII letters, never NUL)
+            byte_counts += np.bincount(
+                b.seqs[:n].reshape(-1), minlength=256
+            )
+    el = time.perf_counter() - t0
+    out = {
+        "reads": n_reads,
+        "bases": n_bases,
+        "min_len": min_len or 0,
+        "max_len": max_len,
+        "mean_len": round(n_bases / n_reads, 2) if n_reads else 0,
+        "seconds": round(el, 3),
+        "bases_per_sec": round(n_bases / el) if el > 0 else None,
+    }
+    if byte_counts is not None:
+        byte_counts[0] = 0  # padding
+        comp = {}
+        for base in "ACGT":
+            comp[base] = int(
+                byte_counts[ord(base)] + byte_counts[ord(base.lower())]
+            )
+        comp["N"] = int(byte_counts[ord("N")] + byte_counts[ord("n")])
+        comp["other"] = int(byte_counts.sum() - sum(comp.values()))
+        acgt = sum(comp[b] for b in "ACGT")
+        out["composition"] = comp
+        out["gc_fraction"] = (
+            round((comp["G"] + comp["C"]) / acgt, 6) if acgt else None
+        )
+    print(json.dumps(out))
+    return 0
+
+
+def _cmd_bgzip(args) -> int:
+    from .io.bgzf import write_bgzf_stream
+    from .io.compression import open_uncompressed
+
+    # transparently decode any supported codec, then re-block as BGZF —
+    # streamed, O(block_size) memory (open_uncompressed chains the
+    # sniffed first byte back in front)
+    with open(args.path, "rb") as f:
+        stream, _first = open_uncompressed(f)
+        total = write_bgzf_stream(stream, args.output, block_size=args.block_size)
+    print(f"# {total} bytes -> {args.output}", file=sys.stderr)
+    return 0
+
+
+def _cmd_convert(args) -> int:
+    """FASTA/FASTQ conversion through the reference round-trip writers
+    (ref record.rs:207-247): sequences unwrap to one line, FASTA -> FASTQ
+    fills qualities with 'I' (the reference's missing-qual rule), input
+    line endings are preserved unless --unix."""
+    from .parser import parse_fastx_file
+    from .parser.record import write_fasta, write_fastq
+    from .parser.utils import LineEnding
+
+    fmt = args.to
+    if fmt is None:
+        low = args.output.lower()
+        if low.endswith((".fa", ".fasta", ".fna")):
+            fmt = "fasta"
+        elif low.endswith((".fq", ".fastq")):
+            fmt = "fastq"
+        else:
+            raise SystemExit(
+                "cannot infer the target format from the output name; "
+                "pass --to fasta|fastq"
+            )
+    forced = LineEnding.UNIX if args.unix else None
+    n = 0
+    reader = parse_fastx_file(args.path)
+    with open(args.output, "wb") as out:
+        while (rec := reader.next()) is not None:
+            ending = forced or rec.line_ending()
+            seq = rec.strip_returns()
+            if fmt == "fasta":
+                write_fasta(rec.id(), seq, out, ending)
+            else:
+                write_fastq(rec.id(), seq, rec.qual(), out, ending)
+            n += 1
+    print(f"# {n} records -> {args.output} ({fmt})", file=sys.stderr)
+    return 0
 
 
 def _cmd_count(args) -> int:
@@ -370,6 +475,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="needletail_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("stats", help="read/base counts at framer speed (no device)")
+    p.add_argument("path")
+    p.add_argument("--batch-size", type=int, default=8192)
+    p.add_argument("--composition", action="store_true",
+                   help="also report A/C/G/T/N/other counts and GC fraction")
+    p.set_defaults(fn=_cmd_stats)
+
     p = sub.add_parser("count", help="exact canonical k-mer spectrum")
     _add_common_flags(
         p, batch_size=4096,
@@ -394,6 +506,12 @@ def main(argv=None) -> int:
     p.add_argument("-o", "--output", help="write table .npz")
     p.set_defaults(fn=_cmd_hash_count)
 
+    p = sub.add_parser("bgzip", help="recompress to BGZF (block-parallel decompressible)")
+    p.add_argument("path")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--block-size", type=int, default=65280)
+    p.set_defaults(fn=_cmd_bgzip)
+
     p = sub.add_parser("filter", help="drop reads below a mean Phred score")
     p.add_argument("path")
     p.add_argument("output")
@@ -414,6 +532,17 @@ def main(argv=None) -> int:
     _add_stream_flags(p)
     _add_output_flags(p, "spectrum")
     p.set_defaults(fn=_cmd_minimizers)
+
+    p = sub.add_parser(
+        "convert", help="FASTA<->FASTQ conversion (reference writer semantics)"
+    )
+    p.add_argument("path")
+    p.add_argument("output")
+    p.add_argument("--to", choices=("fasta", "fastq"), default=None,
+                   help="target format (default: inferred from the output name)")
+    p.add_argument("--unix", action="store_true",
+                   help="force Unix line endings (default: preserve input's)")
+    p.set_defaults(fn=_cmd_convert)
 
     p = sub.add_parser("spectrum", help="whole-genome spectrum via halo tiling")
     p.add_argument("path")

@@ -47,6 +47,7 @@ __all__ = [
     "SPARSE_FLUSH_LANES",
     "spectrum_arrays_to_dict",
     "spectrum_to_dict",
+    "merge_spectra",
     "MAX_DENSE_K",
     "MXU_DENSE_K",
     "FLUSH_ROUTES",
@@ -446,3 +447,12 @@ def spectrum_to_dict(hi, lo, counts, k: int) -> Dict[int, int]:
     ``{kmer_value: count}``."""
     keys, cnts = compact_spectrum(hi, lo, counts)
     return spectrum_arrays_to_dict(keys, cnts)
+
+
+def merge_spectra(dicts) -> Dict[int, int]:
+    """Merge per-batch spectrum dicts (host-side reduction)."""
+    out: Dict[int, int] = {}
+    for d in dicts:
+        for kmer, c in d.items():
+            out[kmer] = out.get(kmer, 0) + c
+    return out

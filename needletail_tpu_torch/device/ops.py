@@ -18,6 +18,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .. import sequence as _hostseq
+from ..encoding import ENCODE_NORMALIZED_LUT, ENCODE_RAW_LUT
 
 __all__ = [
     "normalize",
@@ -30,6 +31,8 @@ __all__ = [
     "expand_vrows",
     "resolve_vbits",
     "encode_2bit",
+    "ENCODE_RAW_LUT",
+    "ENCODE_NORMALIZED_LUT",
 ]
 
 _INVALID = 255

@@ -1,8 +1,8 @@
 """Host-side 2-bit encoding tables and packed-plane helpers.
 
-The port's copy of ``needletail_tpu/encoding.py``: the same tables (built
-here directly, without the host sequence and bit-k-mer modules) and the
-row packer the batches use.
+The port's copy of the JAX package's ``encoding.py``: the same tables
+(built here directly, without the host sequence and bit-k-mer modules),
+the row packer the batches use, and the host packer and unpacker.
 
 One source of truth for the byte -> 2-bit code mapping shared by the C
 framer's packed fills (``csrc/framer.cpp::nt_fill_*_batch_packed``), the
@@ -36,7 +36,9 @@ __all__ = [
     "ENCODE_RAW_LUT",
     "ENCODE_NORMALIZED_LUT",
     "encode_lut",
+    "pack_codes_host",
     "pack_codes_host_rows",
+    "unpack_codes_host",
 ]
 
 _INVALID = 255
@@ -63,6 +65,20 @@ ENCODE_NORMALIZED_LUT = _build_lut(b"ACGTU")
 def encode_lut(normalized: bool) -> np.ndarray:
     """The 256-entry byte -> 2-bit-code table (0xFF invalid) for a mode."""
     return ENCODE_NORMALIZED_LUT if normalized else ENCODE_RAW_LUT
+
+
+def pack_codes_host(
+    seqs: np.ndarray, lengths: np.ndarray, normalized: bool = True
+) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Vectorized numpy packer: ASCII [B, L] -> (codes [B, L/4], vbits).
+
+    The pure-host twin of the C framer's packed fills.  L must be a
+    multiple of 8.  ``vbits`` is None iff every IN-LENGTH byte encoded
+    cleanly (padding beyond ``lengths`` never forces a validity plane;
+    consumers mask windows by length anyway).
+    """
+    codes, vbits, _ = pack_codes_host_rows(seqs, lengths, normalized)
+    return codes, vbits
 
 
 def pack_codes_host_rows(
@@ -94,3 +110,19 @@ def pack_codes_host_rows(
         vbits = np.packbits(valid, axis=1, bitorder="little")
         return packed, vbits, row_invalid
     return packed, None, row_invalid
+
+
+def unpack_codes_host(
+    codes: np.ndarray, vbits: Optional[np.ndarray]
+) -> np.ndarray:
+    """Packed planes -> per-base codes [B, L] uint8 (255 invalid); host
+    twin of ``device.ops.unpack_codes`` for tests."""
+    b, lq = codes.shape
+    l = lq * 4
+    out = np.empty((b, l), dtype=np.uint8)
+    for j in range(4):
+        out[:, j::4] = (codes >> (2 * j)) & 3
+    if vbits is not None:
+        valid = np.unpackbits(vbits, axis=1, bitorder="little")[:, :l]
+        out = np.where(valid.astype(bool), out, np.uint8(_INVALID))
+    return out

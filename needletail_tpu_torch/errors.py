@@ -1,10 +1,12 @@
-"""Parse errors of the port's framers.
+"""Error taxonomy of the port.
 
-The port's copy of the ``ParseError`` half of ``needletail_tpu/errors.py``,
-which mirrors the reference error model (needletail ``src/errors.rs``): a
-single ``ParseError`` carrying a kind, a human message, an
-``ErrorPosition`` (line number + record id when known) and the format
-being parsed.
+The port's copy of the JAX package's ``errors.py``, which mirrors the
+reference error model (needletail ``src/errors.rs``): a single
+``ParseError`` carrying a kind, a human message, an ``ErrorPosition``
+(line number + record id when known) and the format being parsed, plus
+``PhredOffsetError`` for quality decoding.  The Python-facing exception
+type (``NeedletailError``, ref ``src/python.rs:28``) wraps everything for
+the high-level API.
 """
 
 from __future__ import annotations
@@ -166,3 +168,20 @@ class ParseError(Exception):
     def __hash__(self) -> int:
         return hash((self.msg, self.kind, self.position, self.format))
 
+
+@dataclass(frozen=True)
+class PhredOffsetError(Exception):
+    """Error during decoding of FASTQ quality data (ref src/errors.rs:166-181)."""
+
+    q: int = 0
+    offset: int = 0
+
+    def __str__(self) -> str:
+        return (
+            f"character '{chr(self.q)}' cannot be decoded with offset "
+            f"'{self.offset}'"
+        )
+
+
+class NeedletailError(Exception):
+    """Single exception type for the high-level Python API (ref src/python.rs:28)."""

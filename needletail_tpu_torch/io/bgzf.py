@@ -30,6 +30,7 @@ __all__ = [
     "bgzf_decompressed_starts",
     "BGZFReader",
     "write_bgzf",
+    "write_bgzf_stream",
     "MAX_BLOCK_SIZE",
     "BGZF_EOF",
 ]
@@ -289,3 +290,16 @@ def write_bgzf(data: bytes, path, block_size: int = MAX_BLOCK_SIZE) -> None:
         for i in range(0, len(data), block_size):
             _write_member(out, data[i : i + block_size])
         out.write(BGZF_EOF)
+
+
+def write_bgzf_stream(src, path, block_size: int = MAX_BLOCK_SIZE) -> int:
+    """Recompress a readable stream to BGZF with O(block_size) memory;
+    returns the number of uncompressed bytes consumed."""
+    _check_block_size(block_size)
+    total = 0
+    with open(path, "wb") as out:
+        while chunk := src.read(block_size):
+            _write_member(out, chunk)
+            total += len(chunk)
+        out.write(BGZF_EOF)
+    return total

@@ -374,3 +374,10 @@ def extract_ids_packed(
         _u8ptr(out),
     )
     return out[:written].tobytes(), n
+
+
+def extract_ids(buf: np.ndarray, recs: np.ndarray, fastq: bool) -> list:
+    """Record ids as a materialized list of bytes (one C pack + one
+    ``bytes.split``); prefer ``extract_ids_packed`` on hot paths."""
+    blob, n = extract_ids_packed(buf, recs, fastq)
+    return blob.split(b"\n")[:-1] if n else []

@@ -1,9 +1,10 @@
 """Checkpoints of the sharded streaming states.
 
-Counterpart of the sharded-state half of
-``needletail_tpu/parallel/checkpoint.py``; the stream-checkpoint half (the
-drivers' ``kind`` files, among them ``sharded_multik``) is the port's
-``checkpoint.py``, which the sharded drivers use as the flat ones do.
+Counterpart of the sharded-state half of the JAX package's
+``parallel/checkpoint.py``; the stream-checkpoint half (the drivers'
+``kind`` files, among them ``sharded_multik``) is the port's
+``checkpoint.py``, which the sharded drivers use as the flat ones do, and
+which this module re-exports under the JAX module's names.
 The files carry the JAX package's ``.npz`` keys, so either package loads
 the other's.
 
@@ -20,7 +21,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..checkpoint import load_stream_checkpoint, save_stream_checkpoint
+from ..checkpoint import (
+    check_counting_meta,
+    checkpoint_source,
+    checkpointed_batches,
+    counting_meta,
+    load_resume_checkpoint,
+    load_stream_checkpoint,
+    prepare_checkpoint_stream,
+    save_stream_checkpoint,
+    validate_checkpoint_args,
+)
 from .mesh import mesh_device, mesh_shape
 from .sharded import CountState, HashCountState
 
@@ -32,6 +43,13 @@ __all__ = [
     "load_hash_state",
     "load_stream_checkpoint",
     "save_stream_checkpoint",
+    "load_resume_checkpoint",
+    "counting_meta",
+    "check_counting_meta",
+    "validate_checkpoint_args",
+    "checkpoint_source",
+    "prepare_checkpoint_stream",
+    "checkpointed_batches",
 ]
 
 

@@ -1,25 +1,38 @@
-"""SequenceRecord (ref needletail src/parser/record.rs).
+"""SequenceRecord and round-trip writers (ref needletail src/parser/record.rs).
 
-The port's copy of ``needletail_tpu/parser/record.py``, cut to what the
-framers and batches need: the record accessors.  A ``SequenceRecord`` is a
-view over one framed FASTA/FASTQ record that owns its byte span.
+The port's copy of the JAX package's ``parser/record.py``.  A
+``SequenceRecord`` is a view over one framed FASTA/FASTQ record.  Unlike the
+reference (which borrows from the parser's buffer), records here own their
+byte span — Python slicing copies anyway, and the batch path avoids
+per-record objects entirely.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import IO, Optional
 
+from .. import bitkmer as _bitkmer
+from .. import kmer as _kmer
+from .. import sequence as _sequence
 from ..errors import Format
+from ..quality import PhredEncoding, decode_phred
 from .utils import LineEnding, Position, trim_cr
 
-__all__ = ["SequenceRecord"]
+__all__ = [
+    "SequenceRecord",
+    "write_fasta",
+    "write_fastq",
+    "mask_header_tabs",
+    "mask_header_utf8",
+]
 
 
 class SequenceRecord:
     """One FASTA or FASTQ record (ref record.rs:21-178).
 
     Accessors match the reference: ``id``/``raw_seq``/``seq``/``qual``/``all``/
-    ``num_bases``/``start_line_number``/``position``/``line_ending``.
+    ``num_bases``/``start_line_number``/``position``/``line_ending``/``write``/
+    ``decode_phred``.
     """
 
     __slots__ = (
@@ -117,7 +130,7 @@ class SequenceRecord:
     def seq(self) -> bytes:
         """Cleaned-up sequence: FASTA minus all ``\\r\\n`` (ref record.rs:87-92)."""
         if self._format is Format.FASTA:
-            return self.raw_seq().replace(b"\r", b"").replace(b"\n", b"")
+            return _sequence.strip_returns(self.raw_seq())
         return self.raw_seq()
 
     def qual(self) -> Optional[bytes]:
@@ -126,6 +139,16 @@ class SequenceRecord:
         if self._format is Format.FASTA:
             return None
         return trim_cr(self._all[self._qual_off :])
+
+    def decode_phred(
+        self, encoding: PhredEncoding = PhredEncoding.PHRED33
+    ) -> Optional[bytes]:
+        """Decode the quality line to scores (ref record.rs:109-121); None for
+        FASTA; raises PhredOffsetError on out-of-range chars."""
+        q = self.qual()
+        if q is None:
+            return None
+        return decode_phred(q, encoding)
 
     def all(self) -> bytes:
         """Full record span including internal line endings, without a
@@ -150,9 +173,81 @@ class SequenceRecord:
     def line_ending(self) -> LineEnding:
         return self._line_ending
 
+    def write(
+        self, writer: IO[bytes], forced_line_ending: Optional[LineEnding] = None
+    ) -> None:
+        """Round-trip the record, preserving the original line ending unless
+        forced (ref record.rs:158-178)."""
+        ending = forced_line_ending or self._line_ending
+        if self._format is Format.FASTA:
+            write_fasta(self.id(), self.raw_seq(), writer, ending)
+        else:
+            write_fastq(self.id(), self.raw_seq(), self.qual(), writer, ending)
+
+    # -- Sequence-trait conveniences (ref record.rs:181-185 + sequence.rs) ---
+    def sequence(self) -> bytes:
+        return self.raw_seq()
+
+    def normalize(self, iupac: bool = False) -> bytes:
+        out = _sequence.normalize(self.raw_seq(), iupac)
+        return out if out is not None else self.raw_seq()
+
+    def strip_returns(self) -> bytes:
+        return _sequence.strip_returns(self.raw_seq())
+
+    def reverse_complement(self) -> bytes:
+        return _sequence.reverse_complement(self.raw_seq())
+
+    def kmers(self, k: int):
+        return _kmer.kmers(self.raw_seq(), k)
+
+    def canonical_kmers(self, k: int, reverse_complement: bytes):
+        return _kmer.canonical_kmers(self.raw_seq(), reverse_complement, k)
+
+    def bit_kmers(self, k: int, canonical: bool = False):
+        return _bitkmer.bit_kmers(self.raw_seq(), k, canonical)
+
     def __repr__(self) -> str:
         return (
             f"SequenceRecord(format={self._format.value}, id={self.id()!r}, "
             f"len={self.num_bases()})"
         )
 
+
+def mask_header_tabs(id: bytes) -> Optional[bytes]:
+    """Mask tabs in header lines to ``|`` (ref record.rs:188-194); None when
+    there were none."""
+    if b"\t" not in id:
+        return None
+    return id.replace(b"\t", b"|")
+
+
+def mask_header_utf8(id: bytes) -> Optional[bytes]:
+    """Convert invalid UTF-8 to replacement chars (ref record.rs:197-204);
+    None when already valid."""
+    decoded = id.decode("utf-8", errors="replace")
+    out = decoded.encode("utf-8")
+    return None if out == id else out
+
+
+def write_fasta(
+    id: bytes, seq: bytes, writer: IO[bytes], line_ending: LineEnding = LineEnding.UNIX
+) -> None:
+    """Write a FASTA record (ref record.rs:207-220)."""
+    ending = line_ending.to_bytes()
+    writer.write(b">" + id + ending + seq + ending)
+
+
+def write_fastq(
+    id: bytes,
+    seq: bytes,
+    qual: Optional[bytes],
+    writer: IO[bytes],
+    line_ending: LineEnding = LineEnding.UNIX,
+) -> None:
+    """Write a FASTQ record; a missing quality line is filled with ``I``
+    (ref record.rs:222-247)."""
+    ending = line_ending.to_bytes()
+    if qual is None:
+        qual = b"I" * len(seq)
+    writer.write(b"@" + id + ending + seq + ending + b"+" + ending + qual + ending)

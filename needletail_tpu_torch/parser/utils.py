@@ -12,6 +12,7 @@ from typing import Iterator, Optional
 from ..errors import Format, ParseError
 
 __all__ = [
+    "BUFSIZE",
     "Position",
     "Format",
     "LineEnding",
@@ -20,8 +21,9 @@ __all__ = [
     "FastxReader",
 ]
 
-# Read-chunk size (ref utils.rs:8 uses 64 KiB; bigger host chunks here,
-# since Python call overhead dominates; semantics are unaffected).
+# Default read-chunk size (ref utils.rs:8 uses 64 KiB; we read bigger host
+# chunks since Python call overhead dominates, semantics are unaffected).
+BUFSIZE = 64 * 1024
 CHUNK = 1 << 20
 
 
@@ -63,6 +65,9 @@ class LineEnding(enum.Enum):
 
     WINDOWS = "windows"
     UNIX = "unix"
+
+    def to_bytes(self) -> bytes:
+        return b"\r\n" if self is LineEnding.WINDOWS else b"\n"
 
 
 def find_line_ending(data: bytes) -> Optional[LineEnding]:

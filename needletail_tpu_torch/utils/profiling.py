@@ -1,8 +1,9 @@
-"""Throughput metering of the port's drivers.
+"""Throughput metering and the ``torch.profiler`` trace hook of the port.
 
-The port's copy of ``needletail_tpu/utils/profiling.py`` without its
-``jax.profiler`` hook: per-stage seconds, bytes and items behind the
-drivers' ``meter=`` argument (device traces come from ``torch.profiler``).
+The port's copy of the JAX package's ``utils/profiling.py``: per-stage
+seconds, bytes and items behind the drivers' ``meter=`` argument, and
+``trace(log_dir)``, whose device trace comes from ``torch.profiler`` where
+the JAX package's comes from ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -10,9 +11,9 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
-__all__ = ["ThroughputMeter", "metered_iter"]
+__all__ = ["ThroughputMeter", "trace", "metered_iter"]
 
 
 @dataclass
@@ -103,3 +104,23 @@ def metered_iter(meter, name, source, nbytes_of=None, items_of=None):
 
     return gen()
 
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None) -> Iterator[None]:
+    """``torch.profiler`` trace context writing a TensorBoard trace into
+    ``log_dir`` (the card's kernels too where CUDA is available); no-op
+    when ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import (
+        ProfilerActivity, profile, tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -6,8 +6,13 @@ a ``sys.meta_path`` finder installed by ``sitecustomize``, so spawned
 framing workers refuse them too; in it the port imports every module,
 imports ``chip_smoke`` and runs the hash, exact, multi-k, genome,
 quality, bucketed, minimizer and filter drivers, the ``filter`` and
-``minimizers`` commands, and ``hash-count --sharded`` and ``count
---sharded`` in a world of one, on the CPU.  The port's copies
+``minimizers`` commands, ``hash-count --sharded`` and ``count
+--sharded`` in a world of one, on the CPU, and the host surface:
+``parse_fastx_file``, ``Sequence``, ``decode_phred`` and the ``stats``,
+``bgzip`` and ``convert`` commands.  A second subprocess refuses
+``torch`` too, and there the package root parses a FASTQ and the host
+commands run: the root and the host surface stand without torch.  The
+port's copies
 of the framers, batches and codecs then produce the JAX package's batches,
 field for field, over every fixture.
 """
@@ -35,18 +40,23 @@ FIXTURES = [
 BLOCKER = '''
 import sys
 
+REFUSED = ("needletail_tpu", "jax", "jaxlib")
+
 
 class _Refuse:
     """Refuses the JAX package and JAX itself (not the port)."""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("needletail_tpu", "jax", "jaxlib"):
+        if name.split(".")[0] in REFUSED:
             raise ImportError(f"blocked import of {name}")
         return None
 
 
 sys.meta_path.insert(0, _Refuse())
 '''
+# the same finder, refusing torch as well
+TORCH_BLOCKER = BLOCKER.replace(
+    'REFUSED = ("needletail_tpu",', 'REFUSED = ("torch", "needletail_tpu",')
 
 CHECK = '''
 import importlib
@@ -136,6 +146,38 @@ assert printed.getvalue().splitlines() == [
     '"nonzero_bins": 59947}',
     "CTACACGACGCTCTTCCGATC\t104",
 ], printed.getvalue()
+'''
+
+HOST_SURFACE = '''
+import contextlib
+import io
+import json
+import os
+import tempfile
+
+import needletail_tpu_torch as nt
+from needletail_tpu_torch import cli
+
+fq = "tests/data/PRJNA271013_head.fq"
+recs = list(nt.parse_fastx_file(fq))
+assert (len(recs), sum(len(r) for r in recs)) == (2000, 250000)
+assert recs[0].qual is not None and nt.decode_phred(recs[0].qual[:2]) == tuple(
+    q - 33 for q in recs[0].qual[:2].encode())
+assert nt.Sequence(b"AACC").reverse_complement() == b"GGTT"
+out = tempfile.mkdtemp()
+with contextlib.redirect_stdout(io.StringIO()) as printed:
+    with contextlib.redirect_stderr(io.StringIO()) as said:
+        assert cli.main(["stats", fq, "--composition"]) == 0
+        assert cli.main(["bgzip", fq, "-o", os.path.join(out, "x.bgz")]) == 0
+        assert cli.main(["convert", os.path.join(out, "x.bgz"),
+                         os.path.join(out, "x.fa"), "--unix"]) == 0
+stats = json.loads(printed.getvalue())
+assert (stats["reads"], stats["bases"]) == (2000, 250000), stats
+assert said.getvalue().splitlines()[1].startswith("# 2000 records -> "), said
+assert [r.seq for r in nt.parse_fastx_file(os.path.join(out, "x.fa"))] == [
+    r.seq for r in recs]
+'''
+CHECK += HOST_SURFACE + '''
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("needletail_tpu", "jax", "jaxlib"))
 assert not leaked, leaked
@@ -157,6 +199,24 @@ def test_port_runs_with_the_jax_package_refused(tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     words = out.stdout.split()
     assert words[0] == "ok" and int(words[1]) > 25, out.stdout
+
+
+def test_host_surface_stands_without_torch(tmp_path):
+    """With ``torch`` refused too, the package root imports, parses a
+    FASTQ, and the ``stats``, ``bgzip`` and ``convert`` commands run."""
+    (tmp_path / "sitecustomize.py").write_text(TORCH_BLOCKER)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), str(REPO)]))
+    code = HOST_SURFACE + (
+        "import sys\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'needletail_tpu', 'jax', 'jaxlib'))\n"
+        "assert not leaked, leaked\n"
+        "try:\n    import torch\nexcept ImportError:\n    print('refused')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip() == "refused"
 
 
 def test_blocker_refuses_the_jax_package(tmp_path):
