@@ -1,0 +1,7 @@
+"""Share of the window spent in the flush (``device/count.py``'s
+``SparseSpectrumAccumulator._flush``: sort, run count, compaction or host
+filter, host merge), timed by the benchmark's span, synchronised at entry
+and exit, summed over the window (traced run; the phage cell, which
+reports no tail, so that this share moves ``bases_per_s``)."""
+
+from portbench.spans import flush_share as read  # noqa: F401

@@ -1,0 +1,6 @@
+"""Share of the window spent in the flush (``device/count.py``'s
+``SparseSpectrumAccumulator._flush``: sort, run count, compaction or host
+filter, host merge), timed by the benchmark's span, synchronised at entry
+and exit, summed over the window (traced run; the read cells)."""
+
+from portbench.spans import flush_share as read  # noqa: F401
