@@ -314,13 +314,19 @@ def _cmd_spectrum(args) -> int:
 
     from .device.tiling import genome_spectrum
 
+    if args.profile and args.sharded:
+        raise SystemExit("--profile instruments the flat stream (drop --sharded)")
+    meter = _profile_meter(args)
     with _sharded(args) as (mesh, prints):
         n_bases, spec = genome_spectrum(
             args.path, k=args.k, tile_len=args.tile_len,
             sparse_format="arrays", mesh=mesh, device=args.device,
+            meter=meter,
         )
     if not prints:
         return 0
+    if meter is not None:
+        print(meter.report(), file=sys.stderr)
     keys, counts = _sparse_pairs(spec)
     print(f"# {n_bases} bases, {len(keys)} distinct {args.k}-mers",
           file=sys.stderr)
@@ -550,6 +556,9 @@ def main(argv=None) -> int:
     p.add_argument("--tile-len", type=int, default=8192)
     p.add_argument("--sharded", action="store_true",
                    help="tile batches over every rank (halo tiling x mesh)")
+    p.add_argument("--profile", action="store_true",
+                   help="print a per-stage throughput breakdown (tiling, "
+                        "h2d, dispatch, flush, drain) to stderr")
     _add_device_flag(p)
     _add_output_flags(p, "spectrum")
     p.set_defaults(fn=_cmd_spectrum)

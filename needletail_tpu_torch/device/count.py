@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .kmers import KmerWindows, u32_bits
 
 __all__ = [
@@ -317,11 +318,16 @@ def finalize_sparse_device(
     return unique_counts(hi, lo)
 
 
+def _nbytes(*planes) -> int:
+    return sum(p.numel() * p.element_size() for p in planes if p is not None)
+
+
 def finalize_sparse(
     key_parts,
     pad_multiple: int = 1 << 20,
     device_compact: Optional[bool] = None,
     cascade: Optional[bool] = None,
+    meter=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Concatenate per-batch masked (hi, lo) key planes, pad them with the
     sentinel, and resolve them with one device sort: ``(keys uint64,
@@ -334,6 +340,13 @@ def finalize_sparse(
     first.  When the cascade overflows on a mostly-distinct stream (at
     least half the lanes distinct) the sorted runs are pulled whole and
     filtered on the host, since compaction would barely shrink the pull.
+
+    Two spans partition the call at the host's read that settles the
+    route (``meter=`` takes their stages): ``flush.resolve`` (concatenate,
+    pad, sort, run count and the route's compaction, up to the overflow
+    test or the read of the distinct count; items: the lanes sorted) and
+    ``flush.pull`` (the copy to the host, and the host filter where it
+    runs; bytes pulled, items: the distinct keys returned).
     """
     if not key_parts:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
@@ -342,51 +355,64 @@ def finalize_sparse(
         device_compact = on_cuda
     if cascade is None:
         cascade = on_cuda
-    hi, lo = _concat_pad_parts(key_parts, pad_multiple)
-    lanes = lo.shape[0]
-    hi_s, lo_s, counts = unique_counts(hi, lo)
-    if not device_compact:
-        FLUSH_ROUTES["host"] += 1
-        return compact_spectrum(hi_s, lo_s, counts)
-    compacted = None
-    if cascade:
-        compacted = compact_runs_cascade(hi_s, lo_s, counts, n_on_overflow=True)
-    # overflow leaves lo None (hi is None on every narrow result)
-    if compacted is not None and compacted[1] is None:
-        if compacted[3] * 2 >= lanes:
-            FLUSH_ROUTES["host_filter"] += 1
-            return compact_spectrum(hi_s, lo_s, counts)
+    with span("flush.resolve", meter) as resolve:
+        hi, lo = _concat_pad_parts(key_parts, pad_multiple)
+        lanes = resolve.items = lo.shape[0]
+        hi_s, lo_s, counts = unique_counts(hi, lo)
+        route = None if device_compact else "host"
         compacted = None
-    if compacted is None:
-        FLUSH_ROUTES["stable_partition"] += 1
-        compacted = compact_runs_device(hi_s, lo_s, counts)
-    else:
-        FLUSH_ROUTES["cascade"] += 1
-    hi_c, lo_c, c_c, n = compacted
-    n = int(n)
-    keys = _keys_u64(None if hi_c is None else hi_c[:n], lo_c[:n])
-    return keys, _to_numpy(c_c[:n]).astype(np.int64)
+        if device_compact and cascade:
+            compacted = compact_runs_cascade(
+                hi_s, lo_s, counts, n_on_overflow=True)
+            # overflow leaves lo None (hi is None on every narrow result)
+            if compacted[1] is None:
+                if compacted[3] * 2 >= lanes:
+                    route = "host_filter"
+                compacted = None
+            else:
+                route = "cascade"
+        if route is None:
+            route = "stable_partition"
+            compacted = compact_runs_device(hi_s, lo_s, counts)
+        FLUSH_ROUTES[route] += 1
+        if compacted is not None:
+            hi_c, lo_c, c_c, n = compacted
+            n = int(n)
+    with span("flush.pull", meter) as pull:
+        if compacted is None:  # the sorted runs whole, filtered on the host
+            pull.nbytes = _nbytes(hi_s, lo_s, counts)
+            keys, cnts = compact_spectrum(hi_s, lo_s, counts)
+        else:
+            hi_c = None if hi_c is None else hi_c[:n]
+            lo_c, c_c = lo_c[:n], c_c[:n]
+            pull.nbytes = _nbytes(hi_c, lo_c, c_c)
+            keys = _keys_u64(hi_c, lo_c)
+            cnts = _to_numpy(c_c).astype(np.int64)
+        pull.items = len(keys)
+    return keys, cnts
 
 
 def merge_sorted_spectra(
-    ak: np.ndarray, ac: np.ndarray, bk: np.ndarray, bc: np.ndarray
+    ak: np.ndarray, ac: np.ndarray, bk: np.ndarray, bc: np.ndarray,
+    meter=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Merge two key-sorted (keys uint64, counts) spectra on the host,
-    summing the counts of equal keys."""
-    if not len(ak):
-        return bk, bc
-    if not len(bk):
-        return ak, ac
-    keys = np.concatenate([ak, bk])
-    cnts = np.concatenate([ac, bc])
-    order = np.argsort(keys, kind="stable")
-    keys = keys[order]
-    cnts = cnts[order]
-    new = np.empty(len(keys), bool)
-    new[0] = True
-    np.not_equal(keys[1:], keys[:-1], out=new[1:])
-    out = np.add.reduceat(cnts, np.flatnonzero(new))
-    return keys[new], out.astype(np.int64, copy=False)
+    summing the counts of equal keys; the span ``flush.merge``."""
+    with span("flush.merge", meter):
+        if not len(ak):
+            return bk, bc
+        if not len(bk):
+            return ak, ac
+        keys = np.concatenate([ak, bk])
+        cnts = np.concatenate([ac, bc])
+        order = np.argsort(keys, kind="stable")
+        keys = keys[order]
+        cnts = cnts[order]
+        new = np.empty(len(keys), bool)
+        new[0] = True
+        np.not_equal(keys[1:], keys[:-1], out=new[1:])
+        out = np.add.reduceat(cnts, np.flatnonzero(new))
+        return keys[new], out.astype(np.int64, copy=False)
 
 
 # flush threshold of the streaming sparse count: the key planes held on the
@@ -397,12 +423,17 @@ SPARSE_FLUSH_LANES = 1 << 26
 class SparseSpectrumAccumulator:
     """Streaming exact spectrum with bounded device memory: buffer masked
     (hi, lo) key planes on the device, resolve each flush with one device
-    sort, merge the flushes on the host."""
+    sort, merge the flushes on the host.
 
-    def __init__(self, flush_lanes: int = SPARSE_FLUSH_LANES) -> None:
+    Each flush is the span ``flush``, its children those of
+    :func:`finalize_sparse` and :func:`merge_sorted_spectra`; ``meter``
+    (the driver's) takes their stages."""
+
+    def __init__(self, flush_lanes: int = SPARSE_FLUSH_LANES, meter=None) -> None:
         self._parts = []
         self._lanes = 0
         self._flush_lanes = flush_lanes
+        self._meter = meter
         self._keys = np.zeros(0, np.uint64)
         self._counts = np.zeros(0, np.int64)
 
@@ -416,12 +447,13 @@ class SparseSpectrumAccumulator:
     def _flush(self) -> None:
         if not self._parts:
             return
-        keys, counts = finalize_sparse(self._parts)
-        self._parts = []
-        self._lanes = 0
-        self._keys, self._counts = merge_sorted_spectra(
-            self._keys, self._counts, keys, counts
-        )
+        with span("flush", self._meter):
+            keys, counts = finalize_sparse(self._parts, meter=self._meter)
+            self._parts = []
+            self._lanes = 0
+            self._keys, self._counts = merge_sorted_spectra(
+                self._keys, self._counts, keys, counts, meter=self._meter
+            )
 
     def finish(self) -> Tuple[np.ndarray, np.ndarray]:
         """Merged ``(keys, counts)``; the accumulator stays usable (at EOF

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..batch import length_wire_dtype
-from ..utils.profiling import metered_iter
+from ..utils.profiling import metered_iter, span, spanned
 
 from ..encoding import ENCODE_RAW_LUT
 from . import count as _count
@@ -89,12 +89,13 @@ def _uploader(dev: torch.device):
 def _batch_source(
     path, batch_size, max_len, host_workers, spill_dir, packed, normalized,
     ckpt_mode, start_offset, checkpoint_every, with_quals=False,
-    bucketed=False,
+    bucketed=False, meter=None,
 ):
     """A driver's framed batches: length-bucketed ones (single process,
     never in checkpoint mode), one offset-reporting stream from
-    ``start_offset`` in checkpoint mode, else the multi-worker front.
-    ``with_quals`` frames the quality plane too (FASTQ)."""
+    ``start_offset`` in checkpoint mode, else the multi-worker front,
+    whose pool's start and stop go to ``meter``.  ``with_quals`` frames
+    the quality plane too (FASTQ)."""
     if bucketed:
         from ..io.bucketed import bucketed_read_batches
 
@@ -111,6 +112,7 @@ def _batch_source(
     batches, _ = _make_batch_source(
         path, batch_size, max_len, host_workers, with_quals=with_quals,
         spill_dir=spill_dir, packed=packed, normalized=normalized,
+        meter=meter,
     )
     return batches
 
@@ -127,7 +129,8 @@ def _placed_stream(
     ``checkpoint_every``-th item (the feeders prefetch ahead of it);
     ``meter`` records ``frame``, ``h2d`` (synchronized, so its bytes/s is
     the transfer's own) and ``wait``, counting the quality plane's bytes
-    where ``ship_quals`` (``place`` then uploads it beside the bases).
+    where ``ship_quals`` (``place`` then uploads it beside the bases);
+    ``wait`` spans the profiler's timeline with no meter too.
     """
     from ..checkpoint import checkpointed_batches
 
@@ -152,14 +155,11 @@ def _placed_stream(
                 # start the clock on an idle stream: the transfer queues
                 # behind the steps already enqueued
                 torch.cuda.current_stream(dev).synchronize()
-            t0 = _time.perf_counter()
-            out = unmetered(batch)
-            if on_cuda and out[1] is not None:
-                torch.cuda.current_stream(dev).synchronize()
-            meter.add(
-                "h2d", _time.perf_counter() - t0,
-                nbytes=transport_nbytes(batch), items=out[0],
-            )
+            with span("h2d", meter, nbytes=transport_nbytes(batch)) as h2d:
+                out = unmetered(batch)
+                if on_cuda and out[1] is not None:
+                    torch.cuda.current_stream(dev).synchronize()
+                h2d.items = out[0]
             return out
 
     if double_buffer:
@@ -171,9 +171,7 @@ def _placed_stream(
     placed = checkpointed_batches(
         placed, checkpoint_every, save_checkpoint, offset_of=lambda t: t[3]
     )
-    if meter is not None:
-        placed = metered_iter(meter, "wait", placed)
-    return placed
+    return metered_iter(meter, "wait", placed)
 
 
 def _hash_step_fn(k: int, table_bits: int, packed: bool, normalized: bool):
@@ -308,7 +306,7 @@ def hash_count_file(
     t_wall0 = _time.perf_counter()
     batches = _batch_source(
         path, batch_size, max_len, host_workers, spill_dir, packed,
-        normalized, ckpt_mode, start_offset, checkpoint_every,
+        normalized, ckpt_mode, start_offset, checkpoint_every, meter=meter,
     )
     _to_device = _uploader(dev)
 
@@ -359,16 +357,13 @@ def hash_count_file(
     for nb, payload, aux, _offset in placed:
         n_bases += nb
         if payload is not None:
-            t0 = _time.perf_counter() if meter is not None else 0.0
-            step(table, tallies, payload, aux)
-            if meter is not None:
-                meter.add("dispatch", _time.perf_counter() - t0, items=nb)
-    t_drain = _time.perf_counter()
-    total, fwd, out = _hash_finalize(table, tallies)
+            with span("dispatch", meter, items=nb):
+                step(table, tallies, payload, aux)
+    with span("drain", meter) as drain:
+        total, fwd, out = _hash_finalize(table, tallies)
+        drain.nbytes = out.nbytes
     if meter is not None:
-        now = _time.perf_counter()
-        meter.add("drain", now - t_drain, nbytes=out.nbytes)
-        meter.add("wall", now - t_wall0, items=n_bases)
+        meter.add("wall", _time.perf_counter() - t_wall0, items=n_bases)
     return n_bases, total, fwd, out
 
 
@@ -536,6 +531,7 @@ def _masked_ascii(payload, qthresh: Optional[int]):
     return seqs, lengths
 
 
+@spanned("count_file")
 def count_file(
     path,
     k: int,
@@ -662,7 +658,7 @@ def count_file(
         torch.zeros(4**k, dtype=torch.int64, device=dev)
         if accumulate_dense else None
     )
-    sparse = _count.SparseSpectrumAccumulator()
+    sparse = _count.SparseSpectrumAccumulator(meter=meter)
     start_offset = 0
     if ck is not None:
         start_offset = ck["file_offset"]
@@ -690,7 +686,7 @@ def count_file(
     batches = _batch_source(
         path, batch_size, max_len, host_workers, spill_dir, packed,
         normalized, ckpt_mode, start_offset, checkpoint_every,
-        with_quals=quality, bucketed=bucketed,
+        with_quals=quality, bucketed=bucketed, meter=meter,
     )
     place = _place_fn(_uploader(dev), k, packed, quality)
     placed = _placed_stream(
@@ -701,31 +697,27 @@ def count_file(
         n_bases += nb
         if payload is None:
             continue
-        t0 = _time.perf_counter() if meter is not None else 0.0
-        args = _device_args(payload, layout, qthresh)
-        if accumulate_dense:
-            table += spectrum_step(*args)
-        else:
-            sparse.add(*keys_step(*args))
-        if meter is not None:
-            meter.add("dispatch", _time.perf_counter() - t0, items=nb)
+        with span("dispatch", meter, items=nb):
+            args = _device_args(payload, layout, qthresh)
+            if accumulate_dense:
+                table += spectrum_step(*args)
+            else:
+                sparse.add(*keys_step(*args))
 
-    t_drain = _time.perf_counter()
-    if accumulate_dense:
-        result = table.cpu().numpy()
-    else:
-        keys, counts = sparse.finish()
-        if densify_after:
-            result = np.zeros(4**k, np.int64)
-            result[keys.astype(np.int64)] = counts
-        elif sparse_format == "arrays":
-            result = (keys, counts)
+    with span("drain", meter):
+        if accumulate_dense:
+            result = table.cpu().numpy()
         else:
-            result = _count.spectrum_arrays_to_dict(keys, counts)
+            keys, counts = sparse.finish()
+            if densify_after:
+                result = np.zeros(4**k, np.int64)
+                result[keys.astype(np.int64)] = counts
+            elif sparse_format == "arrays":
+                result = (keys, counts)
+            else:
+                result = _count.spectrum_arrays_to_dict(keys, counts)
     if meter is not None:
-        now = _time.perf_counter()
-        meter.add("drain", now - t_drain)
-        meter.add("wall", now - t_wall0, items=n_bases)
+        meter.add("wall", _time.perf_counter() - t_wall0, items=n_bases)
     return n_bases, result
 
 
@@ -888,7 +880,7 @@ def multi_k_count_file(
     batches = _batch_source(
         path, batch_size, max_len, host_workers, spill_dir, packed,
         normalized, ckpt_mode, start_offset, checkpoint_every,
-        with_quals=quality,
+        with_quals=quality, meter=meter,
     )
     to_device = _uploader(dev)
     qthresh = phred_offset + quality_cutoff if quality else None
@@ -934,38 +926,34 @@ def multi_k_count_file(
         n_bases += nb
         if payload is None:
             continue
-        t0 = _time.perf_counter() if meter is not None else 0.0
-        layout, active = aux
-        if packed:
-            codes, lengths, vbits, vrow_idx, vrows = unwire(payload, layout)
-            vbits = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
-            _step(codes, lengths, vbits, active)
-        else:
-            # masked once, before every k
-            _step(*_masked_ascii(payload, qthresh), None, active)
-        if meter is not None:
-            meter.add("dispatch", _time.perf_counter() - t0, items=nb)
+        with span("dispatch", meter, items=nb):
+            layout, active = aux
+            if packed:
+                codes, lengths, vbits, vrow_idx, vrows = unwire(payload, layout)
+                vbits = resolve_vbits(vbits, vrow_idx, vrows, codes.shape[0])
+                _step(codes, lengths, vbits, active)
+            else:
+                # masked once, before every k
+                _step(*_masked_ascii(payload, qthresh), None, active)
 
-    t_drain = _time.perf_counter()
-    out: Dict[int, object] = {}
-    for k in mxu_dense_ks:
-        out[k] = tables[k].cpu().numpy()
-    for k in densify_ks:
-        keys, counts = sparse_accs[k].finish()
-        table = np.zeros(4**k, np.int64)
-        table[keys.astype(np.int64)] = counts
-        out[k] = table
-    for k in sparse_ks:
-        keys, counts = sparse_accs[k].finish()
-        out[k] = (
-            _count.spectrum_arrays_to_dict(keys, counts)
-            if sparse_format == "dict"
-            else (keys, counts)
-        )
+    with span("drain", meter):
+        out: Dict[int, object] = {}
+        for k in mxu_dense_ks:
+            out[k] = tables[k].cpu().numpy()
+        for k in densify_ks:
+            keys, counts = sparse_accs[k].finish()
+            table = np.zeros(4**k, np.int64)
+            table[keys.astype(np.int64)] = counts
+            out[k] = table
+        for k in sparse_ks:
+            keys, counts = sparse_accs[k].finish()
+            out[k] = (
+                _count.spectrum_arrays_to_dict(keys, counts)
+                if sparse_format == "dict"
+                else (keys, counts)
+            )
     if meter is not None:
-        now = _time.perf_counter()
-        meter.add("drain", now - t_drain)
-        meter.add("wall", now - t_wall0, items=n_bases)
+        meter.add("wall", _time.perf_counter() - t_wall0, items=n_bases)
     return n_bases, out
 
 
@@ -1118,7 +1106,7 @@ def minimizer_spectrum_file(
     t_wall0 = _time.perf_counter()
     batches = _batch_source(
         path, batch_size, max_len, host_workers, spill_dir, packed,
-        normalized, ckpt_mode, start_offset, checkpoint_every,
+        normalized, ckpt_mode, start_offset, checkpoint_every, meter=meter,
     )
     place = _place_fn(_uploader(dev), k + w - 1, packed)
     placed = _placed_stream(
@@ -1129,21 +1117,17 @@ def minimizer_spectrum_file(
         n_bases += nb
         if payload is None:
             continue
-        t0 = _time.perf_counter() if meter is not None else 0.0
-        sparse.add(*keys_step(*_device_args(payload, layout)))
-        if meter is not None:
-            meter.add("dispatch", _time.perf_counter() - t0, items=nb)
+        with span("dispatch", meter, items=nb):
+            sparse.add(*keys_step(*_device_args(payload, layout)))
 
-    t_drain = _time.perf_counter()
-    keys, counts = sparse.finish()
-    result = (
-        _count.spectrum_arrays_to_dict(keys, counts)
-        if sparse_format == "dict" else (keys, counts)
-    )
+    with span("drain", meter):
+        keys, counts = sparse.finish()
+        result = (
+            _count.spectrum_arrays_to_dict(keys, counts)
+            if sparse_format == "dict" else (keys, counts)
+        )
     if meter is not None:
-        now = _time.perf_counter()
-        meter.add("drain", now - t_drain)
-        meter.add("wall", now - t_wall0, items=n_bases)
+        meter.add("wall", _time.perf_counter() - t_wall0, items=n_bases)
     return n_bases, result
 
 

@@ -22,6 +22,7 @@ tables, from :mod:`kmers`.
 
 from __future__ import annotations
 
+import time
 from functools import lru_cache
 from typing import Dict, Iterator, Optional, Tuple, Union
 
@@ -30,6 +31,7 @@ import torch
 from numpy.lib.stride_tricks import as_strided
 
 from ..io.fast_batch import fast_read_batches
+from ..utils.profiling import metered_iter, span, spanned
 from . import count as _count
 from . import kmers as _kmers
 from .ops import unpack_codes
@@ -48,6 +50,11 @@ _FRAME_BATCH = 8
 
 def _round8(x: int) -> int:
     return (x + 7) // 8 * 8
+
+
+def _nbytes(block) -> int:
+    """Bytes of a block's planes: what its upload ships."""
+    return sum(p.nbytes for p in block if p is not None)
 
 
 def _tile_plane(
@@ -280,6 +287,7 @@ def _dense_tile_spec_fn(k: int, packed: bool, canonical: bool, normalized: bool)
     return _dense_spec
 
 
+@spanned("genome_spectrum")
 def genome_spectrum(
     path,
     k: int,
@@ -292,6 +300,7 @@ def genome_spectrum(
     mesh=None,
     packed: Optional[bool] = None,
     device: Union[str, torch.device] = "cuda",
+    meter=None,
 ) -> Tuple[int, Union[np.ndarray, Dict[int, int], tuple]]:
     """Exact k-mer spectrum of a (possibly multi-Mbp) FASTX file by halo
     tiling: the whole-bacterium k=31 spectrum.
@@ -315,6 +324,12 @@ def genome_spectrum(
     its own rows' keys (the key-plane kernel on the card) into a
     ``parallel.ShardedSpectrumAccumulator``, and every rank returns the
     whole spectrum; ``sparse_format="device"`` raises ``ValueError``.
+
+    ``meter`` (a ``ThroughputMeter``; not with ``mesh``) records the
+    stages ``tiling.block`` (reading, framing and tiling each block; the
+    bytes of its planes), ``h2d`` (the block's uploads, synchronized, as
+    in ``count_file``), ``dispatch``, the flush's, ``drain`` and ``wall``
+    (items: the bases).
     """
     from .pipeline import _resolve_device, _uploader
 
@@ -343,49 +358,66 @@ def genome_spectrum(
     )
     dense_fn = _dense_tile_spec_fn(k, packed, canonical, normalized)
 
+    on_cuda = dev.type == "cuda"
+    t_wall0 = time.perf_counter()
     table = None
-    sparse = _count.SparseSpectrumAccumulator()
+    sparse = _count.SparseSpectrumAccumulator(meter=meter)
     device_parts = []  # sparse_format="device": the one flush's key planes
     device_lanes = 0
     stream = _TileStream(
         path, k, tile_len, batch_tiles, packed=packed, normalized=normalized
     )
-    for block in stream:
-        if packed:
-            tiles, vbits, lengths = block
-            vb = None if vbits is None else to_device(vbits)
-        else:
-            tiles, lengths = block
-            vb = None
-        dt, dl = to_device(tiles), to_device(lengths)
-        if dense:
-            spec = dense_fn(dt, dl, vb)
-            if table is None:
-                table = torch.zeros(4**k, dtype=torch.int64, device=dev)
-            table += spec
-        elif sparse_format == "device":
-            hi, lo = keys_fn(dt, dl, vb)
-            device_parts.append((hi, lo))
-            device_lanes += lo.numel()
-            if device_lanes > _count.SPARSE_FLUSH_LANES:
-                raise ValueError(
-                    "sparse_format='device' holds the whole stream on "
-                    f"device; {device_lanes} lanes exceed the flush bound "
-                    f"({_count.SPARSE_FLUSH_LANES}) — use 'arrays' instead"
-                )
-        else:
-            sparse.add(*keys_fn(dt, dl, vb))
+    blocks = metered_iter(meter, "tiling.block", stream, nbytes_of=_nbytes)
+    for block in blocks:
+        if meter is not None and on_cuda:
+            # the uploads' clock starts on an idle stream, as count_file's
+            torch.cuda.current_stream(dev).synchronize()
+        with span("h2d", meter, nbytes=_nbytes(block)):
+            if packed:
+                tiles, vbits, lengths = block
+                vb = None if vbits is None else to_device(vbits)
+            else:
+                tiles, lengths = block
+                vb = None
+            dt, dl = to_device(tiles), to_device(lengths)
+            if meter is not None and on_cuda:
+                torch.cuda.current_stream(dev).synchronize()
+        with span("dispatch", meter):
+            if dense:
+                spec = dense_fn(dt, dl, vb)
+                if table is None:
+                    table = torch.zeros(4**k, dtype=torch.int64, device=dev)
+                table += spec
+            elif sparse_format == "device":
+                hi, lo = keys_fn(dt, dl, vb)
+                device_parts.append((hi, lo))
+                device_lanes += lo.numel()
+                if device_lanes > _count.SPARSE_FLUSH_LANES:
+                    raise ValueError(
+                        "sparse_format='device' holds the whole stream on "
+                        f"device; {device_lanes} lanes exceed the flush bound "
+                        f"({_count.SPARSE_FLUSH_LANES}) — use 'arrays' instead"
+                    )
+            else:
+                sparse.add(*keys_fn(dt, dl, vb))
     n_bases = stream.n_bases
-    if dense:
-        if table is None:
-            return n_bases, np.zeros(4**k, np.int64)
-        return n_bases, table.cpu().numpy()
-    if sparse_format == "device":
-        return n_bases, _count.finalize_sparse_device(device_parts)
-    keys, counts = sparse.finish()
-    if sparse_format == "arrays":
-        return n_bases, (keys, counts)
-    return n_bases, _count.spectrum_arrays_to_dict(keys, counts)
+    with span("drain", meter):
+        if dense:
+            result = (
+                np.zeros(4**k, np.int64) if table is None
+                else table.cpu().numpy()
+            )
+        elif sparse_format == "device":
+            result = _count.finalize_sparse_device(device_parts)
+        else:
+            keys, counts = sparse.finish()
+            result = (
+                (keys, counts) if sparse_format == "arrays"
+                else _count.spectrum_arrays_to_dict(keys, counts)
+            )
+    if meter is not None:
+        meter.add("wall", time.perf_counter() - t_wall0, items=n_bases)
+    return n_bases, result
 
 
 def _genome_spectrum_sharded(

@@ -22,6 +22,7 @@ from typing import Iterator, List, Optional, Tuple, Union
 from ..batch import PackedReadBatch, ReadBatch
 from ..errors import ErrorPosition, ParseError
 from ..parser.utils import trim_cr
+from ..utils.profiling import span
 from .compression import sniff_compression
 from .fast_batch import (
     _effective_packed_max_len,
@@ -254,6 +255,7 @@ def parallel_read_batches(
     packed: bool = False,
     normalized: bool = True,
     byte_range: Optional[Tuple[int, int]] = None,
+    meter=None,
 ) -> Iterator[ReadBatch]:
     """Frame an uncompressed FASTX file, or its record-aligned
     ``byte_range`` ``(start, end)``, with ``workers`` processes.
@@ -263,6 +265,11 @@ def parallel_read_batches(
     instead of the pickle queue.  Record ids are not carried.  Errors
     surface with file-global line numbers, as from the single-stream
     reader.
+
+    The pool's start, from the range split to the first batch off its
+    queue, is the span ``framing.start`` (items: the workers), with the
+    children ``framing.split`` and ``framing.spawn``; its shutdown is
+    ``framing.stop``.  ``meter`` takes their stages.
     """
     if packed:
         with_quals = False
@@ -291,36 +298,43 @@ def parallel_read_batches(
             "byte-range framing needs an uncompressed file; use "
             "fast_read_batches(prefetch=True) for compressed input"
         )
-    ranges = split_fastx_ranges(path, workers, byte_range)
-    # spawn, never fork: the consumer runs threads (feeders, CUDA)
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue(maxsize=4 * workers)
-    pool = free_q = shm_names = None
-    if max_len is not None:
-        from .shm_pool import SharedBatchPool
-
-        pool = SharedBatchPool(
-            batch_size, max_len, with_quals, segments=2 * workers + 2,
-            packed=packed,
-        )
-        shm_names = pool.names
-        free_q = ctx.Queue()
-        for i in range(len(shm_names)):
-            free_q.put(i)
-    procs = [
-        ctx.Process(
-            target=_worker,
-            args=(str(path), start, end, batch_size, max_len, with_quals,
-                  False, q, shm_names, free_q, packed, normalized),
-            daemon=True,
-        )
-        for start, end in ranges
-    ]
-    for p in procs:
-        p.start()
-    live = len(procs)
+    # closed at the first batch, or on the way out
+    starting = span("framing.start", meter, items=workers)
+    starting.__enter__()
+    procs = []
+    pool = None
     error = None
     try:
+        with span("framing.split", meter):
+            ranges = split_fastx_ranges(path, workers, byte_range)
+        # spawn, never fork: the consumer runs threads (feeders, CUDA)
+        ctx = mp.get_context("spawn")
+        q = ctx.Queue(maxsize=4 * workers)
+        free_q = shm_names = None
+        if max_len is not None:
+            from .shm_pool import SharedBatchPool
+
+            pool = SharedBatchPool(
+                batch_size, max_len, with_quals, segments=2 * workers + 2,
+                packed=packed,
+            )
+            shm_names = pool.names
+            free_q = ctx.Queue()
+            for i in range(len(shm_names)):
+                free_q.put(i)
+        procs = [
+            ctx.Process(
+                target=_worker,
+                args=(str(path), start, end, batch_size, max_len, with_quals,
+                      False, q, shm_names, free_q, packed, normalized),
+                daemon=True,
+            )
+            for start, end in ranges
+        ]
+        with span("framing.spawn", meter):
+            for p in procs:
+                p.start()
+        live = len(procs)
         while live:
             try:
                 kind, payload = q.get(timeout=1.0)
@@ -347,6 +361,9 @@ def parallel_read_batches(
                 if all(p.exitcode is not None for p in procs) and q.empty():
                     break
                 continue
+            if starting is not None and kind == _BATCH:
+                starting.__exit__(None, None, None)
+                starting = None
             if kind == _DONE:
                 live -= 1
             elif kind == _ERR:
@@ -383,12 +400,15 @@ def parallel_read_batches(
                 seqs, lengths, quals, ids = payload
                 yield ReadBatch(seqs=seqs, lengths=lengths, quals=quals, ids=ids)
     finally:
-        for p in procs:
-            p.terminate()
-        for p in procs:
-            p.join()
-        if pool is not None:
-            pool.close()
+        if starting is not None:
+            starting.__exit__(None, None, None)
+        with span("framing.stop", meter):
+            for p in procs:
+                p.terminate()
+            for p in procs:
+                p.join()
+            if pool is not None:
+                pool.close()
     if error is not None:
         raise error
 
@@ -403,6 +423,7 @@ def _make_batch_source(
     packed: bool = False,
     normalized: bool = True,
     byte_range: Optional[Tuple[int, int]] = None,
+    meter=None,
 ):
     """The drivers' input front: ``(batches, host_workers)``.
 
@@ -413,7 +434,7 @@ def _make_batch_source(
     An explicit ``max_len`` rounds up to a multiple of 8.  ``byte_range``
     ``(start, end)`` frames only that record-aligned range of one
     uncompressed file (a compressed one raises ``ValueError``), through
-    the same pool.
+    the same pool.  ``meter`` takes the framing pool's spans.
     """
     if isinstance(path, (list, tuple)):
         if len(path) == 1:
@@ -426,7 +447,7 @@ def _make_batch_source(
                     src, _w = _make_batch_source(
                         p, batch_size, max_len, host_workers,
                         with_quals=with_quals, spill_dir=spill_dir,
-                        packed=packed, normalized=normalized,
+                        packed=packed, normalized=normalized, meter=meter,
                     )
                     yield from src
 
@@ -439,7 +460,7 @@ def _make_batch_source(
         return parallel_read_batches(
             path, workers=host_workers, batch_size=batch_size,
             max_len=max_len, with_quals=with_quals, packed=packed,
-            normalized=normalized, byte_range=byte_range,
+            normalized=normalized, byte_range=byte_range, meter=meter,
         ), host_workers
     compressed = False
     if str(path) != "-":
@@ -489,7 +510,7 @@ def _make_batch_source(
             yield from parallel_read_batches(
                 plain, workers=host_workers, batch_size=batch_size,
                 max_len=max_len, with_quals=with_quals,
-                packed=packed, normalized=normalized,
+                packed=packed, normalized=normalized, meter=meter,
             )
         finally:
             spill.__exit__(None, None, None)

@@ -1,19 +1,24 @@
-"""Throughput metering and the ``torch.profiler`` trace hook of the port.
+"""Throughput metering, spans and the ``torch.profiler`` trace hook of the
+port.
 
 The port's copy of the JAX package's ``utils/profiling.py``: per-stage
 seconds, bytes and items behind the drivers' ``meter=`` argument, and
 ``trace(log_dir)``, whose device trace comes from ``torch.profiler`` where
-the JAX package's comes from ``jax.profiler``.
+the JAX package's comes from ``jax.profiler``.  :func:`span` marks one
+layer's work at once on the profiler's timeline (``needletail.<name>``,
+beside the card's kernels and copies) and in a meter's stage ``<name>``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional
 
-__all__ = ["ThroughputMeter", "trace", "metered_iter"]
+__all__ = ["ThroughputMeter", "trace", "metered_iter", "span", "spanned"]
 
 
 @dataclass
@@ -77,29 +82,114 @@ class ThroughputMeter:
         return out
 
 
+class _Span:
+    """One open span: a ``record_function`` on the timeline while a profile
+    records this thread, and the seconds, bytes and items added to
+    ``meter``'s stage on exit.  ``nbytes`` and ``items`` may be set inside
+    the body, where they are known only once the work is done; a body that
+    sets ``meter`` to None records nothing into it."""
+
+    __slots__ = ("name", "meter", "nbytes", "items", "_t0", "_rf")
+
+    def __init__(self, name, meter, nbytes, items, recording) -> None:
+        self.name = name
+        self.meter = meter
+        self.nbytes = nbytes
+        self.items = items
+        self._rf = None
+        if recording:
+            from torch.autograd.profiler import record_function
+
+            self._rf = record_function("needletail." + name)
+
+    def __enter__(self) -> "_Span":
+        if self._rf is not None:
+            self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        seconds = time.perf_counter() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        if self.meter is not None:
+            self.meter.add(self.name, seconds, nbytes=self.nbytes,
+                           items=self.items)
+
+
+class _NoSpan:
+    """What :func:`span` returns where nothing would read it: a context
+    that does nothing, whose counters take writes and drop them."""
+
+    __slots__ = ("meter", "nbytes", "items")
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+# torch's test of whether a profile records the calling thread, bound at
+# the first span after torch has been loaded: this module never loads it
+_recording = None
+
+
+def span(name: str, meter=None, nbytes: int = 0, items: int = 0):
+    """Context manager around one layer's work.
+
+    While a ``torch.profiler`` session records the calling thread it opens
+    ``record_function("needletail." + name)``, on the clock of the device
+    trace's kernels and copies (a thread the profile did not start, such
+    as a feeder, is not recorded).  With a ``meter`` it adds the body's
+    ``time.perf_counter`` seconds, ``nbytes`` and ``items`` to the meter's
+    stage ``name``, from any thread.  With neither it costs one test.
+    """
+    global _recording
+    if _recording is None and "torch" in sys.modules:
+        _recording = sys.modules["torch"]._C._autograd._profiler_enabled
+    recording = _recording is not None and _recording()
+    if meter is None and not recording:
+        return _NO_SPAN
+    return _Span(name, meter, nbytes, items, recording)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside ``span(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
 def metered_iter(meter, name, source, nbytes_of=None, items_of=None):
     """Wrap an iterable so the time spent producing each element (the
     ``next()`` call — e.g. host framing, or waiting on a feeder queue) is
-    charged to ``meter`` stage ``name``.  ``meter=None`` passes ``source``
-    through untouched."""
-    if meter is None:
-        return source
+    charged to ``meter`` stage ``name`` and spans ``name`` on the profiler's
+    timeline (the timeline alone with ``meter=None``); the call that finds
+    the source exhausted is not charged to the meter."""
 
     def gen():
         it = iter(source)
         while True:
-            t0 = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
-                return
-            dt = time.perf_counter() - t0
-            meter.add(
-                name,
-                dt,
-                nbytes=nbytes_of(item) if nbytes_of else 0,
-                items=items_of(item) if items_of else 0,
-            )
+            with span(name, meter) as sp:
+                try:
+                    item = next(it)
+                except StopIteration:
+                    sp.meter = None
+                    return
+                if nbytes_of:
+                    sp.nbytes = nbytes_of(item)
+                if items_of:
+                    sp.items = items_of(item)
             yield item
 
     return gen()
