@@ -24,7 +24,10 @@ Phases, each fatal on failure:
    random, top-bit, all-equal, few-distinct, sorted and reversed keys,
    its input unchanged; the ASCII key planes also at every width a
    length-bucketed stream gives them (128 to 4096 and a dynamic 8064),
-   over quality-masked reads, at k=21 and 31;
+   over quality-masked reads, at k=21 and 31; the spectrum merge on empty,
+   disjoint, identical, overlapping and single-key sides, keys at both
+   ends of the int64 range and of k=31's, narrow keys, and equal keys
+   astride the tile edges;
 3. the hash path at full size: ``hash_count_file`` over the golden FASTQ
    written 256 times (64M bases) at batch 131072 x 128, through both of
    its kernels (launch counts read around this run), to the x256 goldens
@@ -39,7 +42,10 @@ Phases, each fatal on failure:
    routes counted around each run), to 256 x the plain path's one-copy
    spectrum; then its bases/s (best of 2 after a warm-up), and at k=21
    the metered stage table and a ``torch.profiler`` view of the device's
-   time by kernel and its busy share;
+   time by kernel and its busy share; then k=21 with the accumulator's
+   flush bound at 2^24 lanes, so the stream takes several flushes merged
+   on the card (merge launches and routes counted), equal to the
+   one-flush result;
 6. the exact path at a smaller depth: k=9 dense (the histogram kernel),
    k=11 densified, ``canonical=False``, ``packed=False``, ``28S.fasta`` at
    k=31 to its goldens, an interrupted ``count_sparse`` checkpoint/resume,
@@ -106,7 +112,10 @@ Phases, each fatal on failure:
    the card's time and not the host's), the histogram also on one hot key
    and on 90% invalid keys, the compaction also on its second cascade
    pass, and the times of the flush's sort and of its whole run count
-   (``unique_counts``: the sort, run heads and lengths);
+   (``unique_counts``: the sort, run heads and lengths); the spectrum
+   merge at a HiFi job's shape (9 M + 6 M keys, 77% of the second in
+   the first) beside the host's ``merge_sorted_spectra`` of the same
+   spectra;
 18. stop every process the run started (the framing pool's resource
    tracker) and fail if a child is still alive; then a
    ``{"kernels": [...]}`` line (``launches_by_path`` counts each kernel's
@@ -163,6 +172,11 @@ COMPACT_CASES = ((100, 0.5), (1_000_003, 0.1), (3_000_001, 0.02))
 # to 7 merge passes
 SORT_CHECK_BLOCKS = tuple(1 << b for b in range(7, 21))
 SORT_CHECK_LANES = 1 << 21
+# the spectrum merge: a HiFi job's merge of a flush into its spectrum
+# (~4.6 M genome 21-mers and ~1.4 M error 21-mers a flush), and the
+# accumulator's flush bound for a 64M-base stream of several flushes
+MERGE_SHAPE = (9_000_000, 6_000_000, 0.77)  # A keys, B keys, share of B in A
+MERGE_FLUSH_LANES = 1 << 24
 
 # the genome path: bench.py's whole-bacterium k=31 spectrum and goldens
 GENOME_BASES = 5_000_000
@@ -220,6 +234,7 @@ class Errors:
         self.worst = {
             "hash_keys": 0, "histogram16": 0, "key_planes": 0,
             "compact_slots": 0, "hash_tally": 0, "block_sort": 0,
+            "merge_spectra": 0,
         }
 
     def hold(self, name: str, what: str, got, want) -> None:
@@ -536,6 +551,33 @@ def check_block_sort(errors: Errors, rng) -> int:
     return cases
 
 
+def hold_merge(errors: Errors, what: str, sides) -> None:
+    import torch
+
+    from needletail_tpu_torch.device import kernels as K_
+
+    t = [torch.from_numpy(x).to("cuda") for x in sides]
+    keys, counts, n = K_.merge_sorted_counts(*t)
+    want = K_.merge_sorted_counts_plain(*t)
+    n = int(n)
+    if n != int(want[2]):
+        raise AssertionError(f"merge_spectra {what}: {n} keys != {int(want[2])}")
+    errors.hold("merge_spectra", f"{what} keys", keys[:n], want[0])
+    errors.hold("merge_spectra", f"{what} counts", counts[:n], want[1])
+
+
+def check_merge_spectra(errors: Errors, rng) -> int:
+    """The spectrum merge against its plain version on the edge cases of
+    ``synth.merge_edge_cases`` and a random 1 M + 700 k merge."""
+    from needletail_tpu_torch.utils.synth import merge_edge_cases, spectra_pair
+
+    cases = merge_edge_cases(rng)
+    cases["random 1M + 700k"] = spectra_pair(rng, 1_000_000, 700_000, 0.7)
+    for what, sides in cases.items():
+        hold_merge(errors, what, sides)
+    return len(cases)
+
+
 def main_path_batch(path: str):
     """The first batch the main paths frame, as device tensors: the packed
     planes and the ASCII planes at batch 131072 x 128."""
@@ -764,6 +806,39 @@ def time_kernels(errors: Errors, path: str) -> dict:
         "flush_runs_ms": runs_ms,
         "distinct": int(heads.numel()),
         "head_sectors": sectors,
+    }
+    del runs, first, second, heads
+
+    # the spectrum merge at a HiFi job's shape, beside the host's merge of
+    # the same spectra (uint64 keys: the sign flip undone)
+    import numpy as np
+
+    from needletail_tpu_torch.utils.synth import spectra_pair
+
+    sides = spectra_pair(np.random.default_rng(SEED + 1), *MERGE_SHAPE)
+    hold_merge(errors, "HiFi shape", sides)
+    ak, ac, bk, bc = (torch.from_numpy(x).to("cuda") for x in sides)
+    n_in = ak.numel() + bk.numel()
+    n_out = int(K_.merge_sorted_counts(ak, ac, bk, bc)[2])
+    host = (C_._packed_to_u64(sides[0], True), sides[1],
+            C_._packed_to_u64(sides[2], True), sides[3])
+    host_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        C_.merge_sorted_spectra(*host)
+        host_s = min(host_s, time.perf_counter() - t0)
+    out["merge_spectra"] = {
+        "ms": cuda_ms(lambda: K_.merge_sorted_counts(ak, ac, bk, bc), 20),
+        "plain_ms": cuda_ms(
+            lambda: K_.merge_sorted_counts_plain(ak, ac, bk, bc), 3, warmup=1
+        ),
+        "library_ms": None,
+        "host_merge_ms": host_s * 1e3,
+        # each input key and count read once, each output written once
+        "bound": bound_ms(16 * n_in + 16 * n_out, 0),
+        # 48 bytes an input key: keys and counts read twice, 16 written
+        "per_key_bound_ms": 48 * n_in / HBM_BYTES_PER_S * 1e3,
+        "shape": f"[{ak.numel()}] + [{bk.numel()}] keys, {n_out} out",
     }
     return out
 
@@ -1005,8 +1080,44 @@ def run_exact_main_path(big: Path, card: str) -> dict:
                 lambda: count_file(str(big), k, device="cuda", **kw)
             )
             log(f"exact device profile k={k}: " + json.dumps(prof))
+            out[k]["merged"] = run_merged_flushes(big, ref, kw)
         del result, again, ref
     return out
+
+
+def run_merged_flushes(big: Path, ref, kw) -> dict:
+    """``count_file`` at k=21 with the accumulator's flush bound at
+    ``MERGE_FLUSH_LANES``: several flushes, each after the first merged
+    into the spectrum kept on the card; equal to 256 x the one-copy
+    spectrum."""
+    from needletail_tpu_torch.device import count as C_
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.device.pipeline import count_file
+
+    init = C_.SparseSpectrumAccumulator.__init__
+    defaults = init.__defaults__
+    init.__defaults__ = (MERGE_FLUSH_LANES, None)
+    try:
+        K_.reset_launches()
+        C_.reset_flush_routes()
+        C_.reset_merge_routes()
+        t0 = time.perf_counter()
+        result = count_file(str(big), K, device="cuda", **kw)
+        wall = time.perf_counter() - t0
+    finally:
+        init.__defaults__ = defaults
+    expect_spectrum(result, COPIES, ref, "merged flushes")
+    launches = K_.LAUNCHES["merge_spectra"]
+    merges = dict(C_.MERGE_ROUTES)
+    flushes = {r: n for r, n in C_.FLUSH_ROUTES.items() if n}
+    if launches <= 0 or merges != {"device": launches, "host": 0}:
+        raise AssertionError(
+            f"merged flushes: {launches} merge launches, merges {merges}")
+    log(f"merged flushes k={K} at {MERGE_FLUSH_LANES} lanes a flush: equal to "
+        f"{COPIES} x one copy; flushes {flushes}, merges {merges}, "
+        f"{wall:.4f} s")
+    return {"launches": launches, "merges": merges, "flushes": flushes,
+            "wall_s": wall}
 
 
 # the port's own kernels (csrc/*.cu), by function name
@@ -2078,7 +2189,8 @@ def kernel_entry(name, source, replaces, launches, worst, t) -> dict:
     for key in ("ascii_ms", "ascii_plain_ms", "library", "skewed_ms",
                 "invalid_ms", "second_pass_ms", "second_pass_lanes",
                 "second_pass_ok", "second_pass_bound_ms", "flush_sort_ms", "flush_runs_ms",
-                "distinct", "head_sectors", "by_block"):
+                "distinct", "head_sectors", "by_block", "host_merge_ms",
+                "per_key_bound_ms"):
         if key in t:
             entry[key] = t[key]
     if "ascii_bound" in t:
@@ -2148,10 +2260,12 @@ def run() -> int:
     n_compact = check_compact_slots(errors, rng)
     n_sort = check_block_sort(errors, rng)
     n_buckets = check_bucket_widths(errors, rng)
+    n_merge = check_merge_spectra(errors, rng)
     log(f"kernel checks: hash_keys and key_planes {n_window} cases each "
         f"(hash_tally the ASCII ones), key_planes {n_buckets} more at the "
         f"bucket widths {list(BUCKET_WIDTHS)}, histogram16 {n_hist} cases, "
-        f"compact_slots {n_compact} cases, block_sort {n_sort} cases equal "
+        f"compact_slots {n_compact} cases, block_sort {n_sort} cases, "
+        f"merge_spectra {n_merge} cases equal "
         f"to the plain versions at tolerance 0 in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2324,6 +2438,13 @@ def run() -> int:
             "block_sort", "needletail_tpu_torch/csrc/block_sort.cu",
             "benchmarks/exp_mosaic_sort.py:84", sort_launches,
             errors.worst["block_sort"], times["block_sort"],
+        ),
+        kernel_entry(
+            "merge_spectra", "needletail_tpu_torch/csrc/merge_spectra.cu",
+            "none: the JAX package merges on the host "
+            "(needletail_tpu/device/count.py:385)",
+            exact[K]["merged"]["launches"], errors.worst["merge_spectra"],
+            times["merge_spectra"],
         ),
     ]
     kernels[0]["also_replaces"] = f"{pk}:301"

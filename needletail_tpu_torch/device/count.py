@@ -18,10 +18,15 @@ int32 tensors of uint32 bit patterns and the invalid-window sentinel
   * :func:`compact_runs_cascade`: two passes of the slot-compaction
     kernel shrink a flush up to 64x before the stable partition of
     :func:`compact_runs_device` runs on the remainder.
+  * :class:`SparseSpectrumAccumulator`: the streaming exact spectrum.  A
+    stream that outgrows one flush keeps its spectrum on the device and
+    merges each later flush into it with ``kernels.merge_sorted_counts``;
+    the JAX package merges every flush on the host.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -53,6 +58,8 @@ __all__ = [
     "MXU_DENSE_K",
     "FLUSH_ROUTES",
     "reset_flush_routes",
+    "MERGE_ROUTES",
+    "reset_merge_routes",
 ]
 
 MAX_DENSE_K = 12
@@ -82,6 +89,17 @@ FLUSH_ROUTES: Dict[str, int] = {
 def reset_flush_routes() -> None:
     for route in FLUSH_ROUTES:
         FLUSH_ROUTES[route] = 0
+
+
+# SparseSpectrumAccumulator's merges of a flush into the spectrum so far,
+# by where they ran: "device" (the spectrum kept on the device, merged by
+# kernels.merge_sorted_counts) or "host" (merge_sorted_spectra)
+MERGE_ROUTES: Dict[str, int] = {"device": 0, "host": 0}
+
+
+def reset_merge_routes() -> None:
+    for route in MERGE_ROUTES:
+        MERGE_ROUTES[route] = 0
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -322,6 +340,41 @@ def _nbytes(*planes) -> int:
     return sum(p.numel() * p.element_size() for p in planes if p is not None)
 
 
+def _resolve_flush(key_parts, pad_multiple, device_compact, cascade,
+                   host_filter, meter):
+    """The span ``flush.resolve`` of a flush: concatenate, pad, sort, run
+    count and the route's compaction, up to the host's read that settles
+    the route.  Returns ``(hi, lo, counts, compacted)``: the compacted run
+    heads, cut to the distinct count, or (``compacted`` False) the sorted
+    runs whole for the host to filter.  ``host_filter`` allows that route
+    when the cascade overflows on a mostly-distinct flush."""
+    with span("flush.resolve", meter) as resolve:
+        hi, lo = _concat_pad_parts(key_parts, pad_multiple)
+        lanes = resolve.items = lo.shape[0]
+        hi_s, lo_s, counts = unique_counts(hi, lo)
+        route = None if device_compact else "host"
+        compacted = None
+        if device_compact and cascade:
+            compacted = compact_runs_cascade(
+                hi_s, lo_s, counts, n_on_overflow=True)
+            # overflow leaves lo None (hi is None on every narrow result)
+            if compacted[1] is None:
+                if host_filter and compacted[3] * 2 >= lanes:
+                    route = "host_filter"
+                compacted = None
+            else:
+                route = "cascade"
+        if route is None:
+            route = "stable_partition"
+            compacted = compact_runs_device(hi_s, lo_s, counts)
+        FLUSH_ROUTES[route] += 1
+        if compacted is None:
+            return hi_s, lo_s, counts, False
+        hi_c, lo_c, c_c, n = compacted
+        n = int(n)
+        return None if hi_c is None else hi_c[:n], lo_c[:n], c_c[:n], True
+
+
 def finalize_sparse(
     key_parts,
     pad_multiple: int = 1 << 20,
@@ -355,39 +408,15 @@ def finalize_sparse(
         device_compact = on_cuda
     if cascade is None:
         cascade = on_cuda
-    with span("flush.resolve", meter) as resolve:
-        hi, lo = _concat_pad_parts(key_parts, pad_multiple)
-        lanes = resolve.items = lo.shape[0]
-        hi_s, lo_s, counts = unique_counts(hi, lo)
-        route = None if device_compact else "host"
-        compacted = None
-        if device_compact and cascade:
-            compacted = compact_runs_cascade(
-                hi_s, lo_s, counts, n_on_overflow=True)
-            # overflow leaves lo None (hi is None on every narrow result)
-            if compacted[1] is None:
-                if compacted[3] * 2 >= lanes:
-                    route = "host_filter"
-                compacted = None
-            else:
-                route = "cascade"
-        if route is None:
-            route = "stable_partition"
-            compacted = compact_runs_device(hi_s, lo_s, counts)
-        FLUSH_ROUTES[route] += 1
-        if compacted is not None:
-            hi_c, lo_c, c_c, n = compacted
-            n = int(n)
+    hi, lo, counts, compacted = _resolve_flush(
+        key_parts, pad_multiple, device_compact, cascade, True, meter)
     with span("flush.pull", meter) as pull:
-        if compacted is None:  # the sorted runs whole, filtered on the host
-            pull.nbytes = _nbytes(hi_s, lo_s, counts)
-            keys, cnts = compact_spectrum(hi_s, lo_s, counts)
-        else:
-            hi_c = None if hi_c is None else hi_c[:n]
-            lo_c, c_c = lo_c[:n], c_c[:n]
-            pull.nbytes = _nbytes(hi_c, lo_c, c_c)
-            keys = _keys_u64(hi_c, lo_c)
-            cnts = _to_numpy(c_c).astype(np.int64)
+        pull.nbytes = _nbytes(hi, lo, counts)
+        if compacted:
+            keys = _keys_u64(hi, lo)
+            cnts = _to_numpy(counts).astype(np.int64)
+        else:  # the sorted runs whole, filtered on the host
+            keys, cnts = compact_spectrum(hi, lo, counts)
         pull.items = len(keys)
     return keys, cnts
 
@@ -419,14 +448,54 @@ def merge_sorted_spectra(
 # device between flushes take 8 bytes a lane, so 2^26 lanes ~= 0.5 GiB
 SPARSE_FLUSH_LANES = 1 << 26
 
+# bytes a key of a spectrum kept on the device: an int64 packed key and an
+# int64 count
+_KEY_BYTES = 16
+
+
+def _free_bytes(device: torch.device) -> int:
+    """Bytes free on ``device`` now: ``torch.cuda.mem_get_info`` on a GPU, the
+    host's available memory for CPU tensors."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    try:
+        return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    except (ValueError, OSError):  # no such count here: take it as room
+        return 1 << 62
+
+
+def _packed_to_u64(keys: np.ndarray, wide: bool) -> np.ndarray:
+    """uint64 keys of :func:`_pack`'s int64 keys (the sign flip undone)."""
+    return (keys ^ np.int64(_SIGN) if wide else keys).view(np.uint64)
+
+
+def _u64_to_packed(keys: np.ndarray, wide: bool) -> np.ndarray:
+    """:func:`_pack`'s int64 keys of uint64 keys."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint64).view(np.int64)
+    return keys ^ np.int64(_SIGN) if wide else keys
+
 
 class SparseSpectrumAccumulator:
     """Streaming exact spectrum with bounded device memory: buffer masked
-    (hi, lo) key planes on the device, resolve each flush with one device
-    sort, merge the flushes on the host.
+    (hi, lo) key planes on the device and resolve each flush with one
+    device sort.
+
+    A stream that fits one flush (resolved by :meth:`finish`) runs
+    :func:`finalize_sparse` and nothing else.  A flush that :meth:`add`
+    starts keeps its spectrum on the device as packed int64 keys and
+    int64 counts (only its distinct count reaches the host), and each
+    later flush merges into that spectrum on the device
+    (``kernels.merge_sorted_counts``); :meth:`finish` pulls it in one
+    copy.  The spectrum stays there while it and the flush, twice over
+    for the merge's output, fit in half of the device's free memory at
+    that flush; otherwise it is pulled once and the rest of the stream
+    merges on the host (:func:`merge_sorted_spectra`), as a restored
+    spectrum does until the first merge on the device uploads it.
+    :data:`MERGE_ROUTES` counts the merges by where they ran.
 
     Each flush is the span ``flush``, its children those of
-    :func:`finalize_sparse` and :func:`merge_sorted_spectra`; ``meter``
+    :func:`finalize_sparse` (``flush.resolve``, ``flush.pull``) and the
+    merge, ``flush.merge`` (items: the distinct keys after it); ``meter``
     (the driver's) takes their stages."""
 
     def __init__(self, flush_lanes: int = SPARSE_FLUSH_LANES, meter=None) -> None:
@@ -434,8 +503,16 @@ class SparseSpectrumAccumulator:
         self._lanes = 0
         self._flush_lanes = flush_lanes
         self._meter = meter
+        # the spectrum so far: the host arrays, unless _resident holds it
+        # on the device as (keys, counts) tensors packed as _pack packs
+        # them (the host arrays then hold finish()'s last pull)
         self._keys = np.zeros(0, np.uint64)
         self._counts = np.zeros(0, np.int64)
+        self._resident: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._wide = True
+        # set once the memory rule pulled the spectrum: the stream's later
+        # flushes merge on the host
+        self._host_only = False
 
     def add(self, hi: Optional[torch.Tensor], lo: torch.Tensor) -> None:
         """Buffer one batch's masked key planes (``hi=None``: narrow)."""
@@ -444,26 +521,93 @@ class SparseSpectrumAccumulator:
         if self._lanes >= self._flush_lanes:
             self._flush()
 
-    def _flush(self) -> None:
-        if not self._parts:
+    def _flush(self, pull: bool = False) -> None:
+        """Resolve the buffered planes into the spectrum; ``pull`` (at
+        :meth:`finish`) also brings a spectrum kept on the device to the
+        host."""
+        if not self._parts and not (pull and self._resident is not None):
             return
-        with span("flush", self._meter):
-            keys, counts = finalize_sparse(self._parts, meter=self._meter)
-            self._parts = []
-            self._lanes = 0
-            self._keys, self._counts = merge_sorted_spectra(
-                self._keys, self._counts, keys, counts, meter=self._meter
+        meter = self._meter
+        with span("flush", meter):
+            parts, self._parts, self._lanes = self._parts, [], 0
+            if parts and (self._host_only or (
+                    pull and self._resident is None)):
+                keys, counts = finalize_sparse(parts, meter=meter)
+                self._merge_on_host(keys, counts)
+            elif parts:
+                self._flush_to_device(parts)
+            if pull and self._resident is not None:
+                self._keys, self._counts = self._pull_resident()
+
+    def _flush_to_device(self, parts) -> None:
+        """Resolve a flush on the device and merge it into the spectrum
+        kept there, or pull both where the memory rule says no."""
+        meter = self._meter
+        wide = parts[0][0] is not None
+        on_cuda = _on_cuda(parts[0][1])
+        hi, lo, counts, _ = _resolve_flush(
+            parts, 1 << 20, True, on_cuda, False, meter)
+        keys = _pack(hi, lo)
+        counts = counts.to(torch.int64)
+        held = (self._keys.size if self._resident is None
+                else self._resident[0].numel())
+        need = 2 * _KEY_BYTES * (held + keys.numel())
+        if need > _free_bytes(keys.device) // 2:
+            self._host_only = True
+            if self._resident is not None:
+                self._keys, self._counts = self._pull_resident()
+                self._resident = None
+            with span("flush.pull", meter) as p:
+                p.nbytes = _nbytes(keys, counts)
+                p.items = keys.numel()
+                flush_keys = _packed_to_u64(_to_numpy(keys), wide)
+                flush_counts = _to_numpy(counts)
+            self._merge_on_host(flush_keys, flush_counts)
+            return
+        self._wide = wide
+        if self._resident is None and not self._keys.size:
+            self._resident = (keys, counts)
+            return
+        if self._resident is None:  # a restored spectrum, uploaded now
+            self._resident = (
+                torch.from_numpy(_u64_to_packed(self._keys, wide)).to(keys.device),
+                torch.from_numpy(self._counts).to(keys.device),
             )
+            self._keys = np.zeros(0, np.uint64)
+            self._counts = np.zeros(0, np.int64)
+        from .kernels import merge_sorted_counts
+
+        with span("flush.merge", meter) as merge:
+            out_k, out_c, n = merge_sorted_counts(*self._resident, keys, counts)
+            merge.items = n = int(n)
+            self._resident = (out_k[:n], out_c[:n])
+        MERGE_ROUTES["device"] += 1
+
+    def _merge_on_host(self, keys: np.ndarray, counts: np.ndarray) -> None:
+        if self._keys.size:
+            MERGE_ROUTES["host"] += 1
+        self._keys, self._counts = merge_sorted_spectra(
+            self._keys, self._counts, keys, counts, meter=self._meter
+        )
+
+    def _pull_resident(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The spectrum kept on the device, as host arrays, in one copy;
+        the device keeps it."""
+        with span("flush.pull", self._meter) as pull:
+            both = torch.stack(self._resident).cpu().numpy()
+            pull.nbytes = both.nbytes
+            pull.items = both.shape[1]
+        return _packed_to_u64(both[0], self._wide), both[1]
 
     def finish(self) -> Tuple[np.ndarray, np.ndarray]:
         """Merged ``(keys, counts)``; the accumulator stays usable (at EOF
         and for checkpoint snapshots)."""
-        self._flush()
+        self._flush(pull=True)
         return self._keys, self._counts
 
     def restore(self, keys: np.ndarray, counts: np.ndarray) -> None:
         """Re-seed the merged spectrum (checkpoint resume)."""
-        if self._parts or self._keys.size:
+        if self._parts or self._keys.size or self._resident is not None:
             raise ValueError("restore() only applies to a fresh accumulator")
         self._keys = np.asarray(keys, dtype=np.uint64)
         self._counts = np.asarray(counts, dtype=np.int64)

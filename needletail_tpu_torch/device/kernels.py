@@ -18,7 +18,10 @@ Counterpart of ``needletail_tpu/device/pallas_kernels.py``:
     ``canonical_hash_tally``, :275);
   * :func:`bitonic_block_sort` runs ``csrc/block_sort.cu`` (replaces
     ``_bitonic_kernel`` through ``bitonic_block_sort`` of the experiment
-    ``benchmarks/exp_mosaic_sort.py``, :39/:84).
+    ``benchmarks/exp_mosaic_sort.py``, :39/:84);
+  * :func:`merge_sorted_counts` runs ``csrc/merge_spectra.cu`` (replaces
+    no TPU kernel: the JAX package merges its flushes on the host, in
+    ``needletail_tpu/device/count.py:merge_sorted_spectra``).
 
 Key planes are int32 tensors holding uint32 bit patterns, with the
 sentinel 0xFFFFFFFF (-1) on invalid lanes, as the Pallas planes kernel
@@ -65,6 +68,8 @@ __all__ = [
     "canonical_hash_tally_plain",
     "bitonic_block_sort",
     "block_sort_plain",
+    "merge_sorted_counts",
+    "merge_sorted_counts_plain",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -75,7 +80,7 @@ BINS = 1 << 16
 
 LAUNCHES: Dict[str, int] = {
     "hash_keys": 0, "histogram16": 0, "key_planes": 0, "compact_slots": 0,
-    "hash_tally": 0, "block_sort": 0,
+    "hash_tally": 0, "block_sort": 0, "merge_spectra": 0,
 }
 
 
@@ -783,3 +788,94 @@ def bitonic_block_sort(x: torch.Tensor, block_lanes: int) -> torch.Tensor:
         raise RuntimeError(f"block_sort kernel launch failed: CUDA error {err}")
     LAUNCHES["block_sort"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# merge of two sorted spectra
+# ---------------------------------------------------------------------------
+
+
+def _check_spectrum(name: str, keys: torch.Tensor, counts: torch.Tensor) -> None:
+    _check_plane(f"{name} keys", keys, torch.int64, 1)
+    _check_plane(f"{name} counts", counts, torch.int64, 1)
+    if keys.shape != counts.shape:
+        raise ValueError(
+            f"{name} keys and counts differ in length: {keys.numel()} and "
+            f"{counts.numel()}"
+        )
+
+
+def merge_sorted_counts_plain(
+    ak: torch.Tensor, ac: torch.Tensor, bk: torch.Tensor, bc: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`merge_sorted_counts`: a stable sort
+    of both sides concatenated and a sum over each run.  Its outputs hold
+    exactly ``n_out`` entries."""
+    for name, k, c in (("a", ak, ac), ("b", bk, bc)):
+        _check_spectrum(name, k, c)
+    keys, order = torch.sort(torch.cat([ak, bk]), stable=True)
+    counts = torch.cat([ac, bc])[order]
+    head = torch.ones(keys.numel(), dtype=torch.bool, device=keys.device)
+    head[1:] = keys[1:] != keys[:-1]
+    out_k = keys[head]
+    sums = torch.zeros(out_k.numel(), dtype=torch.int64, device=keys.device)
+    sums.index_add_(0, head.cumsum(0) - 1, counts)
+    return out_k, sums, head.sum()
+
+
+def _merge_lib() -> ctypes.CDLL:
+    lib = _build.load("merge_spectra")
+    fn = lib.nt_merge_spectra
+    if fn.argtypes is None:
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, p, ll, p, p, ll, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        lib.nt_merge_spectra_scratch.argtypes = [ll]
+        lib.nt_merge_spectra_scratch.restype = ll
+    return lib
+
+
+def merge_sorted_counts(
+    ak: torch.Tensor, ac: torch.Tensor, bk: torch.Tensor, bc: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge two spectra whose int64 keys ascend under a signed compare and
+    are distinct within each side, summing the int64 counts of equal keys.
+
+    Returns ``(keys, counts, n_out)``: the first ``n_out`` entries (a 0-d
+    int64 tensor on the inputs' device, so reading it is the caller's
+    sync) are the distinct keys of both sides, ascending, each with its
+    summed count; on the GPU the outputs have room for every input key and
+    the entries past ``n_out`` are undefined.  ``count.py``'s packed keys
+    (the sign bit flipped on wide keys) order as their unsigned values.
+    On the GPU a merge path: each CTA finds its tile of the merge by
+    binary search and merges it in shared memory, twice (run heads, then
+    the output at each tile's scanned offset).
+    """
+    for name, k, c in (("a", ak, ac), ("b", bk, bc)):
+        _check_spectrum(name, k, c)
+    if not _on_cuda(ak, ac, bk, bc):
+        return merge_sorted_counts_plain(ak, ac, bk, bc)
+    _check_contiguous(ak=ak, ac=ac, bk=bk, bc=bc)
+    dev = ak.device
+    total = ak.numel() + bk.numel()
+    out_k = torch.empty(total, dtype=torch.int64, device=dev)
+    out_c = torch.empty(total, dtype=torch.int64, device=dev)
+    n_out = torch.zeros((), dtype=torch.int64, device=dev)
+    if total == 0:
+        return out_k, out_c, n_out
+    lib = _merge_lib()
+    scratch = torch.empty(
+        lib.nt_merge_spectra_scratch(total), dtype=torch.int64, device=dev
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nt_merge_spectra(
+            ak.data_ptr(), ac.data_ptr(), ak.numel(),
+            bk.data_ptr(), bc.data_ptr(), bk.numel(),
+            out_k.data_ptr(), out_c.data_ptr(), n_out.data_ptr(),
+            scratch.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"merge_spectra kernel launch failed: CUDA error {err}")
+    LAUNCHES["merge_spectra"] += 1
+    return out_k, out_c, n_out

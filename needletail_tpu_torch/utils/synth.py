@@ -1,7 +1,8 @@
 """Seeded synthetic inputs: read planes for holding kernels against their
 plain versions (the tests and ``chip_smoke.py`` use them), the
-whole-genome FASTA of the genome-spectrum path, and a FASTQ of mixed read
-lengths for the bucketed path.
+whole-genome FASTA of the genome-spectrum path, a FASTQ of mixed read
+lengths for the bucketed path, and pairs of sorted spectra for the
+spectrum merge.
 
 Every input comes from a numpy ``Generator``, so the JAX package, the
 port's plain versions and its CUDA kernels all see the same bytes.
@@ -17,6 +18,7 @@ from ..encoding import pack_codes_host_rows
 __all__ = [
     "CLEAN", "DIRTY", "random_reads", "packed_batch", "packed_rows",
     "odd_offset_view", "synthetic_genome", "mixed_length_fastq",
+    "spectra_pair", "merge_edge_cases",
 ]
 
 # case-folded bases only: every in-length byte encodes
@@ -170,3 +172,48 @@ def mixed_length_fastq(
         ))
         start = end
     return b"".join(out)
+
+
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def spectra_pair(rng: np.random.Generator, n_a: int, n_b: int, overlap: float):
+    """Two sorted spectra of distinct int64 keys, ``overlap`` of B's keys
+    also in A: numpy ``(ak, ac, bk, bc)``, counts in [1, 2^40)."""
+    both = int(n_b * overlap)
+    keys = np.unique(rng.integers(_I64_MIN, _I64_MAX,
+                                  int((n_a + n_b - both) * 1.01), dtype=np.int64))
+    keys = rng.permutation(keys)[: n_a + n_b - both]
+    a = np.sort(keys[:n_a])
+    b = np.sort(np.concatenate([a[rng.permutation(n_a)[:both]], keys[n_a:]]))
+    return (a, rng.integers(1, 1 << 40, a.size), b,
+            rng.integers(1, 1 << 40, b.size))
+
+
+def merge_edge_cases(rng: np.random.Generator, tile: int = 2048):
+    """``{name: (ak, ac, bk, bc)}``: empty, disjoint, identical,
+    overlapping and single-key sides, the ends of the int64 range and of
+    k=31's packed keys (``count._pack`` flips the sign bit), keys of a
+    narrow (k <= 15) stream, and equal keys astride every edge of a merge
+    that cuts its output into ``tile``-key tiles."""
+    k31_top = ((1 << 62) - 1) - (1 << 63)  # 2^62 - 1, the sign bit flipped
+    r = np.unique(rng.integers(_I64_MIN, _I64_MAX, 50_000, dtype=np.int64))
+    even = np.arange(0, 20 * tile, 2, dtype=np.int64)
+    sides = {
+        "a empty": ([], r), "b empty": (r, []), "disjoint": (even, even + 1),
+        "identical": (r, r), "overlapping": (r[:30_000], r[20_000:]),
+        "single key": ([k31_top], [k31_top]),
+        "k31 ends": ([_I64_MIN, k31_top], [_I64_MIN, k31_top - 1, k31_top]),
+        "int64 ends": ([_I64_MIN, -1, 0, _I64_MAX],
+                       [_I64_MIN, -2, 0, 1, _I64_MAX]),
+        "narrow": (np.unique(rng.integers(0, 1 << 32, 30_000)),
+                   np.unique(rng.integers(0, 1 << 32, 30_000))),
+        "tile edges": (np.arange(0, 6 * tile, 2),
+                       np.arange(tile // 2 - 1, 6 * tile)),
+    }
+    cases = {}
+    for name, (a, b) in sides.items():
+        a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+        cases[name] = (a, rng.integers(1, 1000, a.size), b,
+                       rng.integers(1, 1000, b.size))
+    return cases

@@ -308,6 +308,111 @@ def test_accumulator_with_tiny_flushes_matches_jax(wide):
         fresh.restore(*got)
 
 
+def _merge_case(case, rng):
+    """Two key-sorted (keys uint64, counts int64) spectra, distinct keys a
+    side, and whether the keys are wide (k > 15)."""
+    def side(keys):
+        keys = np.unique(np.asarray(keys, dtype=np.uint64))
+        return keys, rng.integers(1, 1 << 20, keys.size).astype(np.int64)
+
+    top = (1 << 62) - 1  # the largest k=31 key
+    wide_keys = rng.integers(0, 1 << 62, 400, dtype=np.int64).astype(np.uint64)
+    a, b, wide = {
+        "a_empty": ([], wide_keys, True),
+        "b_empty": (wide_keys, [], True),
+        "both_empty": ([], [], True),
+        "disjoint": (wide_keys[:200] * 2, wide_keys[200:] * 2 + 1, True),
+        "identical": (wide_keys, wide_keys, True),
+        "overlap": (wide_keys[:300], wide_keys[150:], True),
+        "single_key": ([top], [top], True),
+        "k31_ends": ([0, 5, top], [0, top - 1, top], True),
+        "sign_flip": (
+            [(1 << 63) - 1, 1 << 63, (1 << 64) - 1, 0, 1 << 31],
+            [(1 << 63) - 2, 1 << 63, (1 << 63) + 1, 1 << 31, 1 << 32], True),
+        "narrow": (rng.integers(0, 1 << 30, 300), rng.integers(0, 1 << 30, 300),
+                   False),
+        "narrow_ends": ([0, 0xFFFFFFFE], [0, 7, 0xFFFFFFFE], False),
+    }[case]
+    return (*side(a), *side(b), wide)
+
+
+@pytest.mark.parametrize("case", [
+    "a_empty", "b_empty", "both_empty", "disjoint", "identical", "overlap",
+    "single_key", "k31_ends", "sign_flip", "narrow", "narrow_ends",
+])
+def test_plain_merge_matches_host_merge(case):
+    """``kernels.merge_sorted_counts`` (plain on the CPU) over the packed
+    keys of the accumulator equals ``merge_sorted_spectra`` of the uint64
+    keys, and JAX's."""
+    ak, ac, bk, bc, wide = _merge_case(case, np.random.default_rng(len(case)))
+    want = tc.merge_sorted_spectra(ak, ac, bk, bc)
+    jwant = jc.merge_sorted_spectra(ak, ac, bk, bc)
+    for w, j in zip(want, jwant):
+        np.testing.assert_array_equal(w, j)
+    packed = [torch.from_numpy(tc._u64_to_packed(k, wide)) for k in (ak, bk)]
+    for merge in (tkr.merge_sorted_counts, tkr.merge_sorted_counts_plain):
+        keys, counts, n = merge(packed[0], torch.from_numpy(ac),
+                                packed[1], torch.from_numpy(bc))
+        n = int(n)
+        got_keys = tc._packed_to_u64(keys[:n].numpy(), wide)
+        np.testing.assert_array_equal(got_keys, want[0])
+        np.testing.assert_array_equal(counts[:n].numpy(), want[1])
+        assert counts.dtype == torch.int64
+    assert tkr.LAUNCHES["merge_spectra"] == 0  # the CPU runs no kernel
+
+
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("case", [
+    "several_flushes", "finish_mid_stream", "restore_then_flush",
+    "host_fallback",
+])
+def test_accumulator_keeps_spectrum_on_device(case, wide, monkeypatch):
+    """A stream of several flushes, its spectrum kept on the device and
+    merged there (the plain merge on the CPU), equals one flush of the
+    whole stream: checkpoint snapshots mid-stream, a restored spectrum
+    uploaded at the first merge, and the memory rule's fall back to host
+    merges mid-stream."""
+    hi, lo = _key_stream(21, 6000, wide, distinct=700)
+    cut = [(i, i + 500) for i in range(0, 6000, 500)]
+    _, parts = _parts(hi, lo, cut)
+
+    def one_flush(ps):
+        return tc.finalize_sparse(ps, pad_multiple=1024)
+
+    def same(got, want):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert got[0].dtype == np.uint64 and got[1].dtype == np.int64
+
+    probes = []
+    if case == "host_fallback":
+        def free_bytes(device):
+            probes.append(device)
+            return 1 << 40 if len(probes) < 3 else 0
+        monkeypatch.setattr(tc, "_free_bytes", free_bytes)
+    tc.reset_merge_routes()
+    acc = tc.SparseSpectrumAccumulator(flush_lanes=1100)
+    rest = parts
+    if case == "restore_then_flush":
+        acc.restore(*one_flush(parts[:4]))
+        rest = parts[4:]
+    for i, (h, l) in enumerate(rest):
+        acc.add(h, l)
+        if case == "finish_mid_stream" and i == 6:
+            same(acc.finish(), one_flush(parts[:7]))
+            same(acc.finish(), one_flush(parts[:7]))
+    same(acc.finish(), one_flush(parts))
+    routes = dict(tc.MERGE_ROUTES)
+    if case == "host_fallback":
+        # flushes 1-2 on the device (one merge), then pulled at flush 3
+        assert len(probes) == 3
+        assert routes == {"device": 1, "host": 2}
+    else:
+        assert routes["host"] == 0 and routes["device"] >= 3
+    with pytest.raises(ValueError, match="fresh"):
+        acc.restore(*one_flush(parts))
+
+
 def test_merge_and_dict_views_match_jax():
     rng = np.random.default_rng(8)
     a = np.unique(rng.integers(0, 1000, 300)).astype(np.uint64)

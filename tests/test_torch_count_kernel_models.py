@@ -1,5 +1,6 @@
-"""The index arithmetic of the port's histogram and slot-compaction CUDA
-kernels, modelled in numpy and held against the references.
+"""The index arithmetic of the port's histogram, slot-compaction and
+spectrum-merge CUDA kernels, modelled in numpy and held against the
+references.
 
 ``csrc/histogram16.cu`` runs clusters of two CTAs; rank r holds bins
 [32768 r, 32768 r + 32768) in shared memory.  The keys are read once, as
@@ -13,7 +14,11 @@ chunk to one warp, whose thread t holds lanes [V t, V t + V) of each
 32 V-lane segment (V = 4 when chunk is a multiple of 128 and counts is
 16-byte aligned, else 1); V ballots give each thread its flags' ranks,
 and the running count carries across segments and tiles of four
-segments.
+segments.  ``csrc/merge_spectra.cu`` cuts the merge of two sorted spectra
+into tiles of ``THREADS * ITEMS`` outputs at diagonals found by binary
+search, merges each tile twice in shared memory (run heads, then the
+output at each tile's scanned offset) and adds B's equal key's count to
+A's, wherever B's key lies.
 
 The models follow the kernels' steps once, written here; the tests hold
 them against the port's plain versions and JAX's ``mxu_histogram16`` /
@@ -409,6 +414,151 @@ def test_compact_model_short_stream():
     _, lo_c, c_c, ok, writes = compact_model(None, lo, counts, chunk=32, slots=4)
     assert ok and lo_c.size == GROUP * 4 and (writes == 1).all()
     assert lo_c[:4].tolist() == [11, 13, 14, 0] and c_c[:4].tolist() == [3, 1, 2, 0]
+
+
+# ---------------------------------------------------------------------------
+# merge_spectra.cu
+# ---------------------------------------------------------------------------
+
+MERGE_THREADS = 256
+MERGE_ITEMS = 8
+
+
+def merge_path(a, b, d):
+    """Number of A's keys among the first d of the merge, ties A first."""
+    lo, hi = max(0, d - len(b)), min(d, len(a))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if a[mid] <= b[d - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def merge_model(ak, ac, bk, bc, threads=MERGE_THREADS, items=MERGE_ITEMS):
+    """The kernel's four launches over int64 arrays: ``(keys, counts,
+    n_out)``, each output slot written once.  Shared memory is a dict
+    holding only what the tile loaded, so a read of a key that was not
+    loaded raises."""
+    tile = threads * items
+    na, nb = len(ak), len(bk)
+    total = na + nb
+    tiles = -(-total // tile)
+    splits = [merge_path(ak, bk, min(t * tile, total)) for t in range(tiles + 1)]
+
+    def merge_tile(t):
+        i0, i1 = splits[t], splits[t + 1]
+        j0, j1 = t * tile - i0, min(t * tile + tile, total) - i1
+        la, lb = i1 - i0, j1 - j0
+        sk, sc = {}, {}
+        for x in range(la + lb):
+            if x < la:
+                sk[1 + x], sc[1 + x] = ak[i0 + x], ac[i0 + x]
+            else:
+                sk[3 + x], sc[3 + x] = bk[j0 + x - la], bc[j0 + x - la]
+        if i0 > 0:
+            sk[0] = ak[i0 - 1]
+        if i1 < na:
+            sk[1 + la], sc[1 + la] = ak[i1], ac[i1]
+        if j0 > 0:
+            sk[2 + la] = bk[j0 - 1]
+        if j1 < nb:
+            sk[3 + la + lb], sc[3 + la + lb] = bk[j1], bc[j1]
+        sa = lambda i: sk[1 + i]  # noqa: E731
+        sb = lambda i: sk[3 + la + i]  # noqa: E731
+        per_thread = []
+        for tid in range(threads):
+            diag = min(tid * items, la + lb)
+            lo, hi = max(0, diag - lb), min(diag, la)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if sa(mid) <= sb(diag - 1 - mid):
+                    lo = mid + 1
+                else:
+                    hi = mid
+            ai, bi = lo, diag - lo
+            prev = None
+            if i0 + ai > 0:
+                prev = sa(ai - 1)
+            if j0 + bi > 0:
+                p = sb(bi - 1)
+                prev = p if prev is None or p > prev else prev
+            out = []
+            for _ in range(min(items, la + lb - diag)):
+                if bi >= lb or (ai < la and sa(ai) <= sb(bi)):
+                    key, c = sa(ai), sc[1 + ai]
+                    if j0 + bi < nb and sb(bi) == key:
+                        c += sc[3 + la + bi]
+                    ai += 1
+                else:
+                    key, c = sb(bi), sc[3 + la + bi]
+                    bi += 1
+                out.append((key, c, prev is None or key != prev))
+                prev = key
+            per_thread.append(out)
+        return per_thread
+
+    heads = [sum(h for th in merge_tile(t) for _, _, h in th)
+             for t in range(tiles)]
+    first = np.concatenate([[0], np.cumsum(heads)]).astype(np.int64)
+    n_out = int(first[-1])
+    out_k = np.full(total, -7, np.int64)
+    out_c = np.full(total, -7, np.int64)
+    writes = np.zeros(total, np.int64)
+    for t in range(tiles):
+        rank = first[t]
+        for th in merge_tile(t):
+            for key, c, head in th:
+                if head:
+                    out_k[rank], out_c[rank] = key, c
+                    writes[rank] += 1
+                    rank += 1
+        assert rank == first[t + 1]
+    return out_k, out_c, n_out, writes
+
+
+def _merge_sides(kind, rng, n=3000):
+    """Two sorted int64 spectra (distinct keys a side) and their counts."""
+    if kind == "overlap":
+        pool = np.unique(rng.integers(-(1 << 62), 1 << 62, 2 * n))
+        a = np.sort(rng.choice(pool, n, replace=False))
+        b = np.sort(np.concatenate([rng.choice(a, n // 3, replace=False),
+                                    rng.choice(pool, n // 3)]))
+        b = np.unique(b)
+    elif kind == "identical":
+        a = np.unique(rng.integers(-(1 << 40), 1 << 40, n))
+        b = a.copy()
+    elif kind == "disjoint":
+        a = np.arange(n, dtype=np.int64) * 2
+        b = a + 1
+    elif kind == "a_empty":
+        a, b = np.zeros(0, np.int64), np.unique(rng.integers(0, 1 << 20, n))
+    elif kind == "b_short":
+        a, b = np.unique(rng.integers(0, 1 << 20, n)), np.array([5], np.int64)
+    else:  # "blocks": long stretches of one side, then equal keys
+        a = np.concatenate([np.arange(0, 2500), np.arange(5000, 5100)])
+        b = np.concatenate([np.arange(2499, 5001), np.arange(5099, 5200)])
+    a, b = a.astype(np.int64), b.astype(np.int64)
+    return (a, rng.integers(1, 1000, a.size), b, rng.integers(1, 1000, b.size))
+
+
+@pytest.mark.parametrize("threads,items", [(MERGE_THREADS, MERGE_ITEMS), (4, 3), (1, 1)])
+@pytest.mark.parametrize("kind", ["overlap", "identical", "disjoint",
+                                  "a_empty", "b_short", "blocks"])
+def test_merge_model_matches_plain(kind, threads, items):
+    """Tile edges fall inside runs of equal keys, on each side's first and
+    last keys, and between A's key and B's equal one."""
+    ak, ac, bk, bc = _merge_sides(kind, np.random.default_rng(len(kind)))
+    if threads == 1 and ak.size + bk.size > 600:
+        ak, ac, bk, bc = ak[:200], ac[:200], bk[:250], bc[:250]
+    out_k, out_c, n_out, writes = merge_model(ak, ac, bk, bc, threads, items)
+    want = tk.merge_sorted_counts_plain(*(torch.from_numpy(x) for x in (ak, ac, bk, bc)))
+    assert n_out == int(want[2])
+    np.testing.assert_array_equal(out_k[:n_out], want[0].numpy())
+    np.testing.assert_array_equal(out_c[:n_out], want[1].numpy())
+    assert (writes[:n_out] == 1).all() and (writes[n_out:] == 0).all()
+    assert int(out_c[:n_out].sum()) == int(ac.sum() + bc.sum())
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ import torch
 from needletail_tpu_torch.device import kernels as tk
 from needletail_tpu_torch.device.ops import resolve_vbits, unwire
 from needletail_tpu_torch.utils.synth import (
-    odd_offset_view, packed_batch, packed_rows, random_reads,
+    merge_edge_cases, odd_offset_view, packed_batch, packed_rows, random_reads,
+    spectra_pair,
 )
 
 pytestmark = pytest.mark.cuda
@@ -498,6 +499,68 @@ def test_cuda_bucketed_matches_plain(cuda_device, tmp_path):
         assert got[0] == want[0]
         for a, b in zip(got[1], want[1]):
             np.testing.assert_array_equal(a, b)
+
+
+def test_cuda_merge_spectra_matches_plain(cuda_device):
+    """The merge kernel at the streaming count's shape (10 M + 6 M keys, 70%
+    of B's keys in A) and on edge cases, against its plain version."""
+    rng = np.random.default_rng(71)
+    cases = [("10M+6M", spectra_pair(rng, 10_000_000, 6_000_000, 0.7))]
+    cases += list(merge_edge_cases(rng).items())
+    tk.reset_launches()
+    for name, sides in cases:
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in sides]
+        keys, counts, n = tk.merge_sorted_counts(*t)
+        want = tk.merge_sorted_counts_plain(*t)
+        n = int(n)
+        assert n == int(want[2]) == want[0].numel(), name
+        assert torch.equal(keys[:n], want[0]), name
+        assert torch.equal(counts[:n], want[1]), name
+    assert tk.LAUNCHES["merge_spectra"] == len(cases)
+
+
+def test_cuda_count_file_merges_flushes_on_device(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """``count_file`` over reads of a 200 kbp genome with 0.5% errors, the
+    accumulator's flush bound made small so the stream takes several
+    flushes, merged on the card: equal to the host surface's NumPy
+    spectrum."""
+    from needletail_tpu_torch.bitkmer import _rc_values, pack_kmers
+    from needletail_tpu_torch.device import count as tc
+    from needletail_tpu_torch.device.pipeline import count_file
+
+    rng = np.random.default_rng(72)
+    genome = rng.integers(0, 4, 200_000)
+    starts = rng.integers(0, genome.size - 150, 24_000)
+    reads = genome[starts[:, None] + np.arange(150)]
+    errors = rng.random(reads.shape) < 0.005
+    reads[errors] = (reads[errors] + rng.integers(1, 4, int(errors.sum()))) % 4
+    seqs = np.frombuffer(b"ACGT", np.uint8)[reads]
+    fq = tmp_path / "reads.fq"
+    with open(fq, "wb") as f:
+        for i, row in enumerate(seqs):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, row.tobytes(), b"I" * 150))
+    k = 21
+    values = []
+    for row in seqs:
+        v, valid = pack_kmers(row.tobytes(), k)
+        v = v[valid]
+        values.append(np.minimum(v, _rc_values(v, k)))
+    want_keys, want_counts = np.unique(np.concatenate(values), return_counts=True)
+
+    init = tc.SparseSpectrumAccumulator.__init__
+    monkeypatch.setattr(init, "__defaults__", (1 << 20, None))
+    tk.reset_launches()
+    tc.reset_merge_routes()
+    n, (keys, counts) = count_file(str(fq), k, batch_size=4096, max_len=160,
+                                   host_workers=1, sparse_format="arrays",
+                                   device="cuda")
+    assert n == seqs.size
+    assert tk.LAUNCHES["merge_spectra"] > 0
+    assert tc.MERGE_ROUTES["device"] == tk.LAUNCHES["merge_spectra"]
+    assert tc.MERGE_ROUTES["host"] == 0
+    np.testing.assert_array_equal(keys, want_keys)
+    np.testing.assert_array_equal(counts, want_counts.astype(np.int64))
 
 
 @pytest.fixture
