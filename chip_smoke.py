@@ -72,8 +72,10 @@ Phases, each fatal on failure:
    bases, 512,000 reads in, 256 x the one-copy kept count, the output's
    sha256 equal to that of 256 one-copy outputs, and its bases/s;
 12. minimizers: ``minimizer_spectrum_file(k=21, w=11)`` over the 64M
-   bases, packed and ASCII, through the key-plane kernel to 256 x the
-   plain one-copy sketch, and the bases/s of each;
+   bases, packed and ASCII, through the key-plane and sketch kernels to
+   256 x the plain one-copy sketch, and the bases/s of each; the sketch
+   kernel alone at the HiFi cell's batch (4096 x 30,000 lanes, k=19,
+   w=19) against its plain version (the ladder) and its bound;
 13. bucketed: ``count_file(k=31, bucketed=True, quality_cutoff=20)`` over
    a seeded mixed-length FASTQ (reads of 36-150 bp and 2-8 kbp) written
    256 times, equal to the flat run on the card and to 256 x the plain
@@ -196,6 +198,10 @@ FILTER_MIN_QUALITY = 30
 GOLD_FILTER = (2_000, 1_732)  # reads in, reads kept
 MINIMIZER_K, MINIMIZER_W = 21, 11  # minimap2's short-read preset (-x sr)
 GOLD_MINIMIZERS = (28_606, 189_960)  # distinct minimizers, winning windows
+# the sketch kernel timed alone at a batch of the HiFi minimizer cell: the
+# driver's 4096 reads padded to 30 kbp, at minimap2's map-hifi sketch
+SKETCH_K, SKETCH_W = 19, 19
+SKETCH_SHAPE = (4096, 30_000)
 BUCKET_K = 31
 BUCKET_BATCH = 8192
 MIXED_SEED = 7  # ~1,600 reads of 36-150 bp and ~20 of 2-8 kbp a copy
@@ -234,7 +240,7 @@ class Errors:
         self.worst = {
             "hash_keys": 0, "histogram16": 0, "key_planes": 0,
             "compact_slots": 0, "hash_tally": 0, "block_sort": 0,
-            "merge_spectra": 0,
+            "merge_spectra": 0, "minimizer_sketch": 0,
         }
 
     def hold(self, name: str, what: str, got, want) -> None:
@@ -1745,10 +1751,47 @@ def run_filter_path(big: Path, tmp: Path, card: str) -> dict:
     return {"best_s": best, "bases_per_s": COPIES * GOLD_BASES / best}
 
 
-def run_minimizer_path(big: Path, card: str) -> dict:
+def time_sketch(errors: Errors) -> dict:
+    """The sketch kernel alone at a HiFi batch's shape (``SKETCH_SHAPE``,
+    seeded reads of every length up to it, some with N), equal to its plain
+    version (the ladder the driver ran before the kernel), and the times
+    of both beside the bound: 8 bytes read a lane and 8 written a
+    position, padding included."""
+    import numpy as np
+    import torch
+
+    from needletail_tpu_torch.bench import cuda_ms
+    from needletail_tpu_torch.device import kernels as K_
+    from needletail_tpu_torch.utils.synth import random_reads
+
+    rows, width = SKETCH_SHAPE
+    seqs, lengths = random_reads(np.random.default_rng(SEED + 2), rows, width,
+                                 dirty_frac=0.01)
+    khi, klo, _, _ = K_.canonical_key_planes(
+        torch.from_numpy(seqs).to("cuda"),
+        torch.from_numpy(lengths).to("cuda"), SKETCH_K,
+    )
+    del seqs, lengths
+    args = (khi, klo, SKETCH_K, SKETCH_W)
+    got = K_.minimizer_sketch(*args)
+    errors.hold_all("minimizer_sketch", "HiFi batch", got,
+                    K_.minimizer_sketch_plain(*args), ("hi", "lo"))
+    read = rows * (width - SKETCH_K + 1)
+    return {
+        "ms": cuda_ms(lambda: K_.minimizer_sketch(*args), 20),
+        "plain_ms": cuda_ms(lambda: K_.minimizer_sketch_plain(*args), 3,
+                            warmup=1),
+        "library_ms": None,
+        "bound": bound_ms(8 * read + 8 * got[1].numel(), 0),
+        "shape": f"[{rows}, {width}] k={SKETCH_K} w={SKETCH_W}",
+    }
+
+
+def run_minimizer_path(big: Path, card: str, errors: Errors) -> dict:
     """Phase 12: ``minimizer_spectrum_file(k=21, w=11)`` over the 64M
     bases, packed and ASCII, to 256 x the plain one-copy sketch, through
-    the key-plane kernel; bases/s of each."""
+    the key-plane and sketch kernels; bases/s of each; the sketch kernel
+    timed alone (:func:`time_sketch`)."""
     from needletail_tpu_torch.device import kernels as K_
     from needletail_tpu_torch.device.pipeline import minimizer_spectrum_file
 
@@ -1772,7 +1815,8 @@ def run_minimizer_path(big: Path, card: str) -> dict:
         K_.reset_launches()
         check(run())
         launches = dict(K_.LAUNCHES)
-        launched(f"minimizers {name}", launches, "key_planes")
+        launched(f"minimizers {name}", launches, "key_planes",
+                 "minimizer_sketch")
         best = best_of_2(run, check)
         out[name] = {"launches": launches, "best_s": best,
                      "bases_per_s": COPIES * GOLD_BASES / best}
@@ -1781,6 +1825,10 @@ def run_minimizer_path(big: Path, card: str) -> dict:
             f"{GOLD_MINIMIZERS[1]} windows a copy); launches {launches}; best "
             f"of 2 {best:.4f} s = {COPIES * GOLD_BASES / best:.6e} bases/s "
             f"({card})")
+    out["sketch"] = time_sketch(errors)
+    log(f"sketch kernel at {out['sketch']['shape']}: "
+        f"{out['sketch']['ms']:.4f} ms (plain {out['sketch']['plain_ms']:.4f} "
+        f"ms; bound {out['sketch']['bound'][0]:.4f} ms) ({card})")
     return out
 
 
@@ -2375,7 +2423,7 @@ def run() -> int:
         # ---- 10-13. quality, filter, minimizers, bucketed ---------------
         quality = run_quality_path(big, small, card)
         filtered = run_filter_path(big, tmp, card)
-        minimizers = run_minimizer_path(big, card)
+        minimizers = run_minimizer_path(big, card, errors)
         bucketed = run_bucketed_path(tmp, card)
 
         # ---- 14. the sharded paths on a NCCL world of one ---------------
@@ -2446,6 +2494,13 @@ def run() -> int:
             exact[K]["merged"]["launches"], errors.worst["merge_spectra"],
             times["merge_spectra"],
         ),
+        kernel_entry(
+            "minimizer_sketch", "needletail_tpu_torch/csrc/minimizer_sketch.cu",
+            "none: the JAX package's sketch is XLA "
+            "(needletail_tpu/device/minimizers.py:window_minimizers)",
+            minimizers["packed"]["launches"]["minimizer_sketch"],
+            errors.worst["minimizer_sketch"], minimizers["sketch"],
+        ),
     ]
     kernels[0]["also_replaces"] = f"{pk}:301"
     kernels[2]["also_replaces"] = f"{pk}:324"
@@ -2512,7 +2567,7 @@ def run() -> int:
                             "best_s": quality["multi_k_best_s"]},
         "filter": filtered,
         "minimizers": {p: {key: v[key] for key in ("bases_per_s", "best_s")}
-                       for p, v in minimizers.items()},
+                       for p, v in minimizers.items() if p != "sketch"},
         "bucketed": {key: bucketed[key] for key in (
             "bases_per_s", "best_s", "flat_s", "widths", "bases")},
         "card": name, "power_limit": power,

@@ -21,7 +21,10 @@ Counterpart of ``needletail_tpu/device/pallas_kernels.py``:
     ``benchmarks/exp_mosaic_sort.py``, :39/:84);
   * :func:`merge_sorted_counts` runs ``csrc/merge_spectra.cu`` (replaces
     no TPU kernel: the JAX package merges its flushes on the host, in
-    ``needletail_tpu/device/count.py:merge_sorted_spectra``).
+    ``needletail_tpu/device/count.py:merge_sorted_spectra``);
+  * :func:`minimizer_sketch` runs ``csrc/minimizer_sketch.cu`` (replaces
+    no TPU kernel: the JAX package computes the (w, k) sketch in XLA, in
+    ``needletail_tpu/device/minimizers.py:window_minimizers``).
 
 Key planes are int32 tensors holding uint32 bit patterns, with the
 sentinel 0xFFFFFFFF (-1) on invalid lanes, as the Pallas planes kernel
@@ -70,6 +73,8 @@ __all__ = [
     "block_sort_plain",
     "merge_sorted_counts",
     "merge_sorted_counts_plain",
+    "minimizer_sketch",
+    "minimizer_sketch_plain",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -81,6 +86,7 @@ BINS = 1 << 16
 LAUNCHES: Dict[str, int] = {
     "hash_keys": 0, "histogram16": 0, "key_planes": 0, "compact_slots": 0,
     "hash_tally": 0, "block_sort": 0, "merge_spectra": 0,
+    "minimizer_sketch": 0,
 }
 
 
@@ -879,3 +885,97 @@ def merge_sorted_counts(
         raise RuntimeError(f"merge_spectra kernel launch failed: CUDA error {err}")
     LAUNCHES["merge_spectra"] += 1
     return out_k, out_c, n_out
+
+
+# ---------------------------------------------------------------------------
+# the (w, k) minimizer sketch
+# ---------------------------------------------------------------------------
+
+def _check_sketch(
+    khi: torch.Tensor, klo: torch.Tensor, k: int, w: int
+) -> None:
+    _check_k(k, 0)
+    if w < 1:
+        raise ValueError("w must be >= 1")
+    _check_plane("khi", khi, torch.int32, 2)
+    _check_plane("klo", klo, torch.int32, 2)
+    if khi.shape != klo.shape:
+        raise ValueError(
+            f"khi {tuple(khi.shape)} and klo {tuple(klo.shape)} differ"
+        )
+
+
+def minimizer_sketch_plain(
+    khi: torch.Tensor, klo: torch.Tensor, k: int, w: int
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch version of :func:`minimizer_sketch`: the doubling
+    ladder of ``minimizers.window_minimizers_from_planes``, then
+    ``count.mask_keys``."""
+    from .count import mask_keys
+    from .minimizers import window_minimizers_from_planes
+
+    _check_sketch(khi, klo, k, w)
+    hi, lo = mask_keys(window_minimizers_from_planes(khi, klo, k, w))
+    return (None if k <= 15 else hi), lo
+
+
+def _sketch_lib() -> ctypes.CDLL:
+    lib = _build.load("minimizer_sketch")
+    fn = lib.nt_minimizer_sketch
+    if fn.argtypes is None:
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [p, p, ll, ll, i, i, p, p, p, p]
+        fn.restype = i
+        lib.nt_minimizer_sketch_scratch.argtypes = [ll, ll, i, i]
+        lib.nt_minimizer_sketch_scratch.restype = ll
+    return lib
+
+
+def minimizer_sketch(
+    khi: torch.Tensor, klo: torch.Tensor, k: int, w: int
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The (w, k) minimizer sketch of canonical key planes, as the flat
+    masked key planes the streaming count buffers.
+
+    ``khi``/``klo``: int32 ``[B, L]`` planes of :func:`canonical_key_planes`
+    or :func:`canonical_key_planes_packed` at ``k``.  Returns ``(hi | None,
+    lo)``, int32 ``[B * (L - k - w + 2)]``: position p of a row covers the
+    windows starting at lanes p .. p+w-1 and holds the smallest of their
+    keys (unsigned (hi, lo) order) when all w are valid, else -1 in both
+    planes; ``hi`` is None for k <= 15, whose keys fit ``lo``.  Equals
+    :func:`minimizer_sketch_plain` bit for bit, at any ``w``.
+    """
+    _check_sketch(khi, klo, k, w)
+    if not _on_cuda(khi, klo):
+        return minimizer_sketch_plain(khi, klo, k, w)
+    _check_contiguous(khi=khi, klo=klo)
+    rows, lanes = khi.shape
+    if lanes - k + 1 < 1:
+        raise ValueError(f"batch max_len {lanes} shorter than k={k}")
+    positions = lanes - k - w + 2
+    if positions < 1:
+        raise ValueError(
+            f"sequence windows {lanes - k + 1} shorter than w={w}"
+        )
+    lo = torch.empty(rows * positions, dtype=torch.int32, device=khi.device)
+    hi = None if k <= 15 else torch.empty_like(lo)
+    if rows == 0:
+        return hi, lo
+    lib = _sketch_lib()
+    # a w whose tile and halo outgrow shared memory keeps its block
+    # minima in device memory
+    values = lib.nt_minimizer_sketch_scratch(rows, lanes, k, w)
+    scratch = torch.empty(values, dtype=torch.int64, device=khi.device)
+    with torch.cuda.device(khi.device):
+        stream = torch.cuda.current_stream(khi.device).cuda_stream
+        err = lib.nt_minimizer_sketch(
+            khi.data_ptr(), klo.data_ptr(), rows, lanes, k, w,
+            None if hi is None else hi.data_ptr(), lo.data_ptr(),
+            scratch.data_ptr() if values else None, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"minimizer_sketch kernel launch failed: CUDA error {err}"
+        )
+    LAUNCHES["minimizer_sketch"] += 1
+    return hi, lo

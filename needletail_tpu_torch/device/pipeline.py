@@ -419,13 +419,9 @@ def base_count(lengths: torch.Tensor) -> torch.Tensor:
     return lengths.to(torch.int64).sum()
 
 
-def _planes_keys(
-    k: int, data, lengths, vbits, packed: bool, normalized: bool,
-    width: Optional[int] = None,
-):
-    """Flat (hi | None, lo) key planes of the window starts ``[0, width)``
-    (default: every start, ``L - k + 1``) from the key-plane kernel; hi is
-    dropped for k <= 15, whose keys fit lo."""
+def _key_planes(k: int, data, lengths, vbits, packed: bool, normalized: bool):
+    """The key-plane kernel's int32 ``[B, L]`` (hi, lo) planes of a placed
+    batch, packed or ASCII."""
     if packed:
         khi, klo, _, _ = _kernels.canonical_key_planes_packed(
             data, vbits, lengths, k
@@ -434,6 +430,17 @@ def _planes_keys(
         khi, klo, _, _ = _kernels.canonical_key_planes(
             data, lengths, k, normalized
         )
+    return khi, klo
+
+
+def _planes_keys(
+    k: int, data, lengths, vbits, packed: bool, normalized: bool,
+    width: Optional[int] = None,
+):
+    """Flat (hi | None, lo) key planes of the window starts ``[0, width)``
+    (default: every start, ``L - k + 1``) from the key-plane kernel; hi is
+    dropped for k <= 15, whose keys fit lo."""
+    khi, klo = _key_planes(k, data, lengths, vbits, packed, normalized)
     # later lanes hold sentinels anyway, and dropping them shrinks the sort
     w = khi.shape[1] - k + 1
     if width is not None:
@@ -962,43 +969,42 @@ def multi_k_count_file(
 # ---------------------------------------------------------------------------
 
 
-def _minimizer_windows_fn(k: int, w: int, packed: bool, normalized: bool,
-                          on_cuda: bool):
-    """The sketch's windows of one placed batch ``(data, lengths,
-    vbits)``: over the key-plane kernel's planes on the card, over
-    :mod:`kmers` windows (the kernel's plain route) on the CPU."""
+def _minimizer_windows_fn(k: int, w: int, normalized: bool, on_cuda: bool):
+    """The mesh route's sketch windows of one ASCII batch ``(seqs,
+    lengths)``: the ladder over the key-plane kernel's planes on the card,
+    over :mod:`kmers` windows (the kernel's plain route) on the CPU."""
     from . import minimizers as _minimizers
 
-    def windows(data, lengths, vbits):
+    def windows(seqs, lengths):
         if on_cuda:
-            if packed:
-                khi, klo, _, _ = _kernels.canonical_key_planes_packed(
-                    data, vbits, lengths, k
-                )
-            else:
-                khi, klo, _, _ = _kernels.canonical_key_planes(
-                    data, lengths, k, normalized
-                )
-            win = _minimizers.window_minimizers_from_planes(khi, klo, k, w)
-        else:
-            seqs = unpack_codes(data, vbits) if packed else data
-            win = _minimizers.window_minimizers(
-                seqs, lengths, k, w, normalized=normalized, precoded=packed
-            )
-        return win
+            khi, klo = _key_planes(k, seqs, lengths, None, False, normalized)
+            return _minimizers.window_minimizers_from_planes(khi, klo, k, w)
+        return _minimizers.window_minimizers(
+            seqs, lengths, k, w, normalized=normalized
+        )
 
     return windows
 
 
 def _minimizer_keys_fn(k: int, w: int, packed: bool, normalized: bool,
-                       on_cuda: bool):
-    """Flat masked (hi | None, lo) sketch keys of one placed batch."""
-    windows = _minimizer_windows_fn(k, w, packed, normalized, on_cuda)
-    return lambda data, lengths, vbits: _window_keys(
-        windows(data, lengths, vbits), k
-    )
+                       meter=None):
+    """Flat masked (hi | None, lo) sketch keys of one placed batch: the
+    key-plane kernel's planes sketched by ``kernels.minimizer_sketch``
+    (``csrc/minimizer_sketch.cu`` on the card, its plain version on the
+    CPU).  The sketch alone is the span ``sketch``, its items the sketch
+    lanes computed, padding included."""
+
+    def sketch(data, lengths, vbits):
+        khi, klo = _key_planes(k, data, lengths, vbits, packed, normalized)
+        with span("sketch", meter) as sp:
+            hi, lo = _kernels.minimizer_sketch(khi, klo, k, w)
+            sp.items = lo.numel()
+        return hi, lo
+
+    return sketch
 
 
+@spanned("minimizer_spectrum_file")
 def minimizer_spectrum_file(
     path,
     k: int,
@@ -1025,16 +1031,18 @@ def minimizer_spectrum_file(
     Returns ``(n_bases, (keys uint64, counts int64))``, keys ascending, or
     a dict with ``sparse_format="dict"``: the values JAX's
     ``minimizer_spectrum_file`` returns.  A batch whose reads are shorter
-    than ``k + w - 1`` adds its bases and nothing else.  On the card the
-    windows come from the key-plane kernel (packed or ASCII), then
-    ``minimizers.window_minimizers_from_planes``, and the sketch keys are
-    counted as :func:`count_file` counts its keys.
+    than ``k + w - 1`` adds its bases and nothing else.  The windows come
+    from the key-plane kernel (packed or ASCII) and the sketch from
+    ``kernels.minimizer_sketch`` (on the CPU, their plain versions), and
+    the sketch keys are counted as :func:`count_file` counts its keys.
 
     ``packed`` (default on) ships the 2-bit wire, else ASCII; results are
     identical.  Checkpoints are of kind ``minimizer`` with ``w`` in their
     meta, the files JAX's driver writes and resumes.  ``meter``,
     ``double_buffer``, ``host_workers``, ``spill_dir`` and ``device`` act
-    as in :func:`count_file`.
+    as in :func:`count_file`; the meter also takes the stage ``sketch``
+    (items: the sketch positions computed, padding included) and the
+    flush's stages.
 
     ``mesh`` (a ``parallel.make_mesh`` mesh on the device ``device``
     names, else ``ValueError``) counts the sketch over its ``data`` dim:
@@ -1091,7 +1099,7 @@ def minimizer_spectrum_file(
             host_workers, spill_dir, ckpt_mode, ck, checkpoint_every,
             checkpoint_path, resume_from, _save, meter, double_buffer,
         )
-    sparse = _count.SparseSpectrumAccumulator()
+    sparse = _count.SparseSpectrumAccumulator(meter=meter)
     n_bases = 0
     start_offset = 0
     if ck is not None:
@@ -1102,7 +1110,7 @@ def minimizer_spectrum_file(
     def _save_checkpoint(offset):
         _save(offset, n_bases, sparse)
 
-    keys_step = _minimizer_keys_fn(k, w, packed, normalized, dev.type == "cuda")
+    keys_step = _minimizer_keys_fn(k, w, packed, normalized, meter)
     t_wall0 = _time.perf_counter()
     batches = _batch_source(
         path, batch_size, max_len, host_workers, spill_dir, packed,
@@ -1151,12 +1159,12 @@ def _minimizer_spectrum_sharded(
         checkpoint_path, resume_from,
     )
     windows = _minimizer_windows_fn(
-        k, w, False, normalized, mesh_device(mesh).type == "cuda"
+        k, w, normalized, mesh_device(mesh).type == "cuda"
     )
     acc = ShardedSpectrumAccumulator(
         mesh, k, normalized=normalized,
         shard_lanes=_count.SPARSE_FLUSH_LANES,  # the flat driver's flush
-        window_fn=lambda s, l: windows(s, l, None),
+        window_fn=windows,
         window_lanes=lambda max_l: max(max_l - k - w + 2, 0),
     )
     start_offset = n_bases = 0

@@ -600,3 +600,77 @@ def test_cuda_sharded_drivers_match_plain(nccl_world_of_one, tmp_path):
     assert n == GOLD[0] and int(spec[4].sum()) == 243_982
     for name in ("hash_keys", "histogram16", "key_planes", "compact_slots"):
         assert K.LAUNCHES[name] > 0, name
+
+
+def _sketch_pairs(got, want):
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+def test_cuda_minimizer_sketch_matches_plain(cuda_device):
+    """The sketch kernel at a HiFi batch's shape (4096 reads padded to
+    30,000 lanes) at minimap2's map-hifi k and w, at k = 15 (no hi plane)
+    and 31, and at a w whose tile outgrows shared memory, against its
+    plain version, the ladder."""
+    rng = np.random.default_rng(81)
+    seqs, lengths = random_reads(rng, 4096, 30_000, dirty_frac=0.01)
+    s = torch.from_numpy(seqs).to(cuda_device)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    del seqs
+    tk.reset_launches()
+    cases = ((19, 19), (15, 11), (31, 5), (21, 1500))
+    lib = tk._sketch_lib()
+    assert lib.nt_minimizer_sketch_scratch(4096, 30_000, 19, 19) == 0
+    assert lib.nt_minimizer_sketch_scratch(4096, 30_000, 21, 1500) > 0
+    for k, w in cases:
+        khi, klo, _, _ = tk.canonical_key_planes(s, ln, k)
+        _sketch_pairs(tk.minimizer_sketch(khi, klo, k, w),
+                      tk.minimizer_sketch_plain(khi, klo, k, w))
+        del khi, klo
+    assert tk.LAUNCHES["minimizer_sketch"] == len(cases)
+
+
+def _write_fastq(path, seqs, lengths):
+    with open(path, "wb") as f:
+        for i, (row, n) in enumerate(zip(seqs, lengths)):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, row[:n].tobytes(), b"I" * int(n)))
+
+
+def test_cuda_minimizer_sketch_at_any_w(cuda_device, tmp_path):
+    """The kernel on both sides of the w at which its tile and halo
+    outgrow shared memory (read from its scratch size), at a w wider than
+    most rows, and the driver at w = 2000 and 19, each through the kernel
+    and equal to the CPU's."""
+    from needletail_tpu_torch.device.pipeline import minimizer_spectrum_file
+    from needletail_tpu_torch.utils.profiling import ThroughputMeter
+
+    rng = np.random.default_rng(82)
+    seqs, lengths = random_reads(rng, 96, 6000, dirty_frac=0.2)
+    s = torch.from_numpy(seqs).to(cuda_device)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    khi, klo, _, _ = tk.canonical_key_planes(s, ln, 19)
+    ws = (2, 1000, 1024, 1025, 1057, 3000, 5900)
+    routes = {tk._sketch_lib().nt_minimizer_sketch_scratch(96, 6000, 19, w) > 0
+              for w in ws}
+    assert routes == {False, True}
+    for w in ws:
+        _sketch_pairs(tk.minimizer_sketch(khi, klo, 19, w),
+                      tk.minimizer_sketch_plain(khi, klo, 19, w))
+    fq = tmp_path / "reads.fq"
+    _write_fastq(fq, seqs, lengths)
+    for w in (2000, 19):
+        tk.reset_launches()
+        meter = ThroughputMeter()
+        got = minimizer_spectrum_file(str(fq), 19, w, device="cuda",
+                                      host_workers=1, meter=meter)
+        assert tk.LAUNCHES["minimizer_sketch"] > 0, w
+        assert tk.LAUNCHES["key_planes"] > 0
+        assert {"sketch", "flush.resolve"} <= set(meter.as_dict())
+        want = minimizer_spectrum_file(str(fq), 19, w, device="cpu",
+                                       host_workers=1)
+        assert got[0] == want[0]
+        assert want[1][0].size > 0
+        for a, b in zip(got[1], want[1]):
+            np.testing.assert_array_equal(a, b)
