@@ -458,7 +458,8 @@ def _add_common_flags(p, batch_size: int, k_help: Optional[str] = None) -> None:
         p.add_argument("-k", required=True, help=k_help)
     p.add_argument("--batch-size", type=int, default=batch_size)
     p.add_argument("--host-workers", type=int, default=None,
-                   help="framing processes (default: auto from CPU count)")
+                   help="framing processes (default: one stream in this "
+                        "process; N > 1 spawns a pool of N)")
     _add_device_flag(p)
     _add_stream_flags(p)
 

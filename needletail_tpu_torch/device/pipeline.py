@@ -93,9 +93,9 @@ def _batch_source(
 ):
     """A driver's framed batches: length-bucketed ones (single process,
     never in checkpoint mode), one offset-reporting stream from
-    ``start_offset`` in checkpoint mode, else the multi-worker front,
-    whose pool's start and stop go to ``meter``.  ``with_quals`` frames
-    the quality plane too (FASTQ)."""
+    ``start_offset`` in checkpoint mode, else the framing front
+    (``io.framing._make_batch_source``), whose start and stop go to
+    ``meter``.  ``with_quals`` frames the quality plane too (FASTQ)."""
     if bucketed:
         from ..io.bucketed import bucketed_read_batches
 
@@ -248,9 +248,13 @@ def hash_count_file(
 
     ``packed=True`` ships each batch as the 2-bit one-buffer wire;
     ``packed=False`` ships ASCII.  Results are identical.
-    ``host_workers=None`` frames plain files with one process per spare
-    core; ``double_buffer`` frames and uploads the next batch in feeder
-    threads while the current one counts.  ``checkpoint_every=N`` writes
+    ``host_workers=None`` frames the input in this process, one
+    native-framer stream on a feeder thread; ``host_workers > 1`` frames
+    a plain file with that many spawned processes and decodes a
+    compressed one to a spill file first (a ``spill_dir`` alone does that
+    too, with a pool of ``io.framing.auto_host_workers()``);
+    ``double_buffer`` frames and uploads the next batch in feeder threads
+    while the current one counts.  ``checkpoint_every=N`` writes
     the state to ``checkpoint_path`` every N batches; ``resume_from``
     continues from such a file (single-stream, uncompressed or BGZF).
 

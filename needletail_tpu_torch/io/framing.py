@@ -7,8 +7,13 @@ size (``io/parallel_host.py``) from the JAX package.  The workers frame
 through the port's own ``io.fast_batch`` and native framer, so a spawned
 child imports nothing but this package.
 
-Batches from several workers interleave; every record is framed by exactly
-one worker, so the counting drivers (integer adds) get identical results.
+The drivers' default front frames a plain file in its own process, one
+native-framer stream on the driver's feeder thread: a pool's start (a cold
+interpreter a worker) costs several times the whole file's framing.  The
+pool runs where a caller asks for it with ``host_workers > 1``.  Its
+batches from several workers interleave; every record is framed by exactly
+one worker, so the counting drivers (integer adds) get identical results
+on either route.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import multiprocessing as mp
 import os
 import queue as _queue
 from pathlib import Path
-from typing import Iterator, List, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 from ..batch import PackedReadBatch, ReadBatch
 from ..errors import ErrorPosition, ParseError
@@ -34,6 +39,8 @@ __all__ = [
     "split_fastx_ranges",
     "parallel_read_batches",
     "auto_host_workers",
+    "FRAMING_ROUTES",
+    "reset_framing_routes",
 ]
 
 _DONE = "done"
@@ -41,9 +48,20 @@ _ERR = "err"
 _BATCH = "batch"
 
 
+# framing fronts that ran, by route: one native stream in this process, or
+# a spawn pool of processes
+FRAMING_ROUTES: Dict[str, int] = {"stream": 0, "pool": 0}
+
+
+def reset_framing_routes() -> None:
+    for route in FRAMING_ROUTES:
+        FRAMING_ROUTES[route] = 0
+
+
 def auto_host_workers() -> int:
-    """Default framing parallelism: all cores but one (the consumer thread
-    drives the device), capped at 16.  Always >= 1."""
+    """A framing pool's size where the caller opts into one without a
+    size (decode-to-spill of compressed input): all cores but one (the
+    consumer thread drives the device), capped at 16.  Always >= 1."""
     return max(1, min((os.cpu_count() or 1) - 1, 16))
 
 
@@ -246,6 +264,37 @@ def split_fastx_ranges(
     return [(cuts[i], cuts[i + 1]) for i in range(n)]
 
 
+def _stream(path, byte_range, meter, **framing) -> Iterator[ReadBatch]:
+    """One native-framer stream in this process: the whole file (decoding
+    compressed input in a thread of its own) or its record-aligned
+    ``byte_range``, whose parse errors carry file-global line numbers as
+    the pool's do.  Its start, from the call to the first batch, is the
+    span ``framing.start`` (items: one worker) and its end
+    ``framing.stop``, as a pool's; ``meter`` takes their stages."""
+    FRAMING_ROUTES["stream"] += 1
+    if byte_range is None:
+        src = fast_read_batches(str(path), prefetch=True, **framing)
+    else:
+        src = fast_read_batches_range(str(path), *byte_range, **framing)
+    starting = span("framing.start", meter, items=1)
+    starting.__enter__()
+    try:
+        for batch in src:
+            if starting is not None:
+                starting.__exit__(None, None, None)
+                starting = None
+            yield batch
+    except ParseError as exc:
+        if byte_range is None:
+            raise
+        raise _rebase_error(str(path), exc, byte_range[0]) from None
+    finally:
+        if starting is not None:
+            starting.__exit__(None, None, None)
+        with span("framing.stop", meter):
+            src.close()
+
+
 def parallel_read_batches(
     path: Union[str, Path],
     workers: int = 2,
@@ -275,15 +324,9 @@ def parallel_read_batches(
         with_quals = False
     # quantize before sizing the pool: workers apply the same rule
     max_len = _effective_packed_max_len(packed, max_len)
-    if byte_range is not None and workers <= 1:
-        yield from fast_read_batches_range(
-            str(path), *byte_range, batch_size=batch_size, max_len=max_len,
-            with_quals=with_quals, packed=packed, normalized=normalized,
-        )
-        return
     if workers <= 1 or str(path) == "-":
-        yield from fast_read_batches(
-            str(path), batch_size=batch_size, max_len=max_len,
+        yield from _stream(
+            path, byte_range, None, batch_size=batch_size, max_len=max_len,
             with_quals=with_quals, packed=packed, normalized=normalized,
         )
         return
@@ -298,6 +341,7 @@ def parallel_read_batches(
             "byte-range framing needs an uncompressed file; use "
             "fast_read_batches(prefetch=True) for compressed input"
         )
+    FRAMING_ROUTES["pool"] += 1
     # closed at the first batch, or on the way out
     starting = span("framing.start", meter, items=workers)
     starting.__enter__()
@@ -427,14 +471,20 @@ def _make_batch_source(
 ):
     """The drivers' input front: ``(batches, host_workers)``.
 
-    ``host_workers=None`` sizes the framing pool from the CPU count for a
-    plain file.  Compressed input streams in one process unless the caller
-    opts into decode-to-spill with an explicit ``host_workers > 1`` or a
-    ``spill_dir``.  A list of paths chains every file through one source.
-    An explicit ``max_len`` rounds up to a multiple of 8.  ``byte_range``
-    ``(start, end)`` frames only that record-aligned range of one
-    uncompressed file (a compressed one raises ``ValueError``), through
-    the same pool.  ``meter`` takes the framing pool's spans.
+    ``host_workers=None`` frames a plain file, or its ``byte_range``, in
+    this process: one native-framer stream on the caller's thread (the
+    drivers' feeder), no process started; ``meter`` takes its
+    ``framing.start`` and ``framing.stop``.  An explicit ``host_workers >
+    1`` frames it with that many spawned processes
+    (:func:`parallel_read_batches`, whose spans ``meter`` takes); an
+    explicit ``1`` streams, unmetered.  Compressed input and stdin stream
+    in one process unless the caller opts into decode-to-spill with an
+    explicit ``host_workers > 1`` or a ``spill_dir`` (a pool of
+    :func:`auto_host_workers` then).  A list of paths chains every file
+    through one source.  An explicit ``max_len`` rounds up to a multiple
+    of 8.  ``byte_range`` ``(start, end)`` frames only that record-aligned
+    range of one uncompressed file (a compressed one raises
+    ``ValueError``).
     """
     if isinstance(path, (list, tuple)):
         if len(path) == 1:
@@ -453,43 +503,38 @@ def _make_batch_source(
 
             return chained(), (host_workers or 0)
 
-    max_len = _quantize_max_len(max_len)
-    if byte_range is not None:
-        if host_workers is None:
-            host_workers = auto_host_workers()
-        return parallel_read_batches(
-            path, workers=host_workers, batch_size=batch_size,
-            max_len=max_len, with_quals=with_quals, packed=packed,
-            normalized=normalized, byte_range=byte_range, meter=meter,
-        ), host_workers
+    framing = dict(
+        batch_size=batch_size, max_len=_quantize_max_len(max_len),
+        with_quals=with_quals, packed=packed, normalized=normalized,
+    )
+    pool = host_workers is not None and host_workers > 1
+    if str(path) == "-":
+        return _stream(path, None, None, **framing), 1
     compressed = False
-    if str(path) != "-":
+    if byte_range is None:
         try:
             with open(path, "rb") as f:
                 magic = f.read(2)
             compressed = len(magic) == 2 and sniff_compression(magic) is not None
         except OSError:
             pass  # the framer raises it with its own error kinds
-    spill_opt_in = spill_dir is not None or (
-        host_workers is not None and host_workers > 1
-    )
-    if host_workers is None:
-        host_workers = auto_host_workers()
-    if str(path) == "-":
-        host_workers = 1
-    if compressed and not spill_opt_in:
-        host_workers = 1
-    if host_workers <= 1:
-        return fast_read_batches(
-            path, batch_size=batch_size, max_len=max_len,
-            with_quals=with_quals, prefetch=True,
-            packed=packed, normalized=normalized,
-        ), host_workers
+    if not compressed:
+        if pool:
+            return parallel_read_batches(
+                path, workers=host_workers, byte_range=byte_range,
+                meter=meter, **framing,
+            ), host_workers
+        if host_workers is not None:
+            meter = None
+        return _stream(path, byte_range, meter, **framing), 1
+    if not pool and (host_workers is not None or spill_dir is None):
+        return _stream(path, None, None, **framing), 1
+    workers = host_workers or auto_host_workers()
 
     def gen():
         from .spill import SpillSpaceError, spilled_input
 
-        spill = spilled_input(path, dir=spill_dir, threads=host_workers)
+        spill = spilled_input(path, dir=spill_dir, threads=workers)
         try:
             plain = spill.__enter__()
         except SpillSpaceError as exc:
@@ -500,19 +545,13 @@ def _make_batch_source(
                 RuntimeWarning,
                 stacklevel=2,
             )
-            yield from fast_read_batches(
-                path, batch_size=batch_size, max_len=max_len,
-                with_quals=with_quals, prefetch=True,
-                packed=packed, normalized=normalized,
-            )
+            yield from _stream(path, None, None, **framing)
             return
         try:
             yield from parallel_read_batches(
-                plain, workers=host_workers, batch_size=batch_size,
-                max_len=max_len, with_quals=with_quals,
-                packed=packed, normalized=normalized, meter=meter,
+                plain, workers=workers, meter=meter, **framing,
             )
         finally:
             spill.__exit__(None, None, None)
 
-    return gen(), host_workers
+    return gen(), workers

@@ -233,11 +233,11 @@ def rank_batch_source(
     """This rank's framed batches of ``batch_size`` rows.  A world of one
     frames the whole input through the flat drivers' front (compressed
     input, spill, bucketed, checkpoints); a larger one frames range
-    ``rank`` of ``split_fastx_ranges(path, n_data)`` of each file, through
-    the spawn pool where ``host_workers > 1`` (default: the cores shared
-    among the ranks)."""
+    ``rank`` of ``split_fastx_ranges(path, n_data)`` of each file: in the
+    rank's own process by default, through a spawn pool of
+    ``host_workers`` processes where ``host_workers > 1``."""
     from ..device.pipeline import _batch_source
-    from ..io.framing import _make_batch_source, auto_host_workers
+    from ..io.framing import _make_batch_source
 
     n_data, rank = data_rank(mesh)
     if n_data == 1:
@@ -246,8 +246,6 @@ def rank_batch_source(
             normalized, ckpt_mode, start_offset, checkpoint_every,
             with_quals=with_quals, bucketed=bucketed,
         )
-    if host_workers is None:
-        host_workers = max(1, auto_host_workers() // n_data)
     paths = _paths_of(path)
     if bucketed and len(paths) > 1:
         raise ValueError("bucketed framing is single-file; pass one path")

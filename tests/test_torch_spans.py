@@ -3,9 +3,9 @@
 Under a ``torch.profiler`` session the entries emit ``needletail.*``
 spans, each child inside its parent and the flush's three children
 partitioning it; a meter gets the same stages with their counters; the
-framing pool reports its start and stop to the meter; and with neither a
-profile nor a meter no ``record_function`` is ever made, with answers
-equal to a traced run's.
+framing front reports its start and stop to the meter, on the stream
+and on the pool alike; and with neither a profile nor a meter no
+``record_function`` is ever made, with answers equal to a traced run's.
 """
 
 import numpy as np
@@ -15,7 +15,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from needletail_tpu_torch.device import pipeline as tpipe
 from needletail_tpu_torch.device import tiling as ttiling
-from needletail_tpu_torch.io.framing import parallel_read_batches
+from needletail_tpu_torch.io.framing import (
+    _make_batch_source,
+    parallel_read_batches,
+)
 from needletail_tpu_torch.utils.profiling import ThroughputMeter
 
 FQ = "tests/data/PRJNA271013_head.fq"
@@ -137,14 +140,26 @@ def test_untraced_calls_no_record_function(traced, entry, monkeypatch):
     np.testing.assert_array_equal(counts, tcounts)
 
 
-def test_pool_start_and_stop_reach_the_meter():
+@pytest.mark.parametrize("route", ["stream", "pool"])
+def test_pool_start_and_stop_reach_the_meter(route):
     meter = ThroughputMeter()
-    n = sum(b.num_bases for b in parallel_read_batches(
-        FQ, workers=2, batch_size=512, max_len=128, packed=True, meter=meter))
+    if route == "pool":
+        batches = parallel_read_batches(
+            FQ, workers=2, batch_size=512, max_len=128, packed=True,
+            meter=meter)
+    else:
+        # the drivers' default front: one stream in this process
+        batches, _ = _make_batch_source(
+            FQ, 512, 128, None, with_quals=False, packed=True, meter=meter)
+    n = sum(b.num_bases for b in batches)
     assert n == 250_000
     st = meter.stages
-    assert {"framing.start", "framing.split", "framing.spawn",
-            "framing.stop"} <= set(st)
+    assert {"framing.start", "framing.stop"} <= set(st)
+    if route == "stream":
+        assert st["framing.start"].items == 1
+        assert not {"framing.split", "framing.spawn"} & set(st)
+        return
+    assert {"framing.split", "framing.spawn"} <= set(st)
     assert st["framing.start"].items == 2
     assert st["framing.split"].seconds + st["framing.spawn"].seconds <= (
         st["framing.start"].seconds)
