@@ -83,8 +83,9 @@ Phases, each fatal on failure:
 14. the sharded paths (``needletail_tpu_torch.parallel``) on a NCCL world
    of one: ``sharded_hash_count_file``, ``sharded_count_file`` (k=21),
    ``sharded_multi_k_count_file`` (4, 21, 31) and the (11, 21) sketch
-   over the 64M bases, ``genome_spectrum(mesh=)`` over the 5 Mbp genome
-   (to its goldens and checksums), each equal to the flat driver's
+   (through the sketch kernel) over the 64M bases,
+   ``genome_spectrum(mesh=)`` over the 5 Mbp genome (to its goldens and
+   checksums), each equal to the flat driver's
    result on the card in this run and through its kernels (launch counts
    read around each run, and every kernel of the lane named in a
    ``torch.profiler`` view of one more run behind a warm-up step, with
@@ -1130,6 +1131,8 @@ def run_merged_flushes(big: Path, ref, kw) -> dict:
 PORT_KERNELS = (
     "window_kernel", "histogram16_kernel", "sum_partials_kernel",
     "compact_slots_kernel", "tile_kernel", "split_kernel", "merge_kernel",
+    "minimizer_sketch_kernel", "sketch_block_minima_kernel",
+    "sketch_from_block_minima_kernel",
 )
 
 
@@ -1137,6 +1140,7 @@ PORT_KERNELS = (
 KERNEL_SYMBOL = {
     "hash_keys": "window_kernel", "key_planes": "window_kernel",
     "histogram16": "histogram16_kernel", "compact_slots": "compact_slots_kernel",
+    "minimizer_sketch": "minimizer_sketch_kernel",
 }
 
 
@@ -1905,7 +1909,8 @@ def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
     paths over the 64M bases (best of 2 each, alternating with the flat
     driver, and one profiled run each for the collectives' device time),
     multi-k (4, 21, 31), the (11, 21) sketch (ASCII, as the mesh path
-    rides), the 5 Mbp genome at k=31 to its goldens, the dryrun, and
+    rides; through the sketch kernel, as the flat driver), the 5 Mbp
+    genome at k=31 to its goldens, the dryrun, and
     ``hash-count --sharded`` and ``count --sharded`` through the command
     line, whose output equals the flat commands'."""
     import torch.distributed as dist
@@ -1960,7 +1965,7 @@ def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
                 lambda: minimizer_spectrum_file(
                     str(big), MINIMIZER_K, MINIMIZER_W, mesh=mesh,
                     **exact_kw),
-                ("key_planes", "compact_slots"),
+                ("key_planes", "minimizer_sketch", "compact_slots"),
             ),
             "genome": (
                 lambda: genome_spectrum(

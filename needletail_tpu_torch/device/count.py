@@ -21,7 +21,9 @@ int32 tensors of uint32 bit patterns and the invalid-window sentinel
   * :class:`SparseSpectrumAccumulator`: the streaming exact spectrum.  A
     stream that outgrows one flush keeps its spectrum on the device and
     merges each later flush into it with ``kernels.merge_sorted_counts``;
-    the JAX package merges every flush on the host.
+    the JAX package merges every flush on the host.  The sharded exact
+    drivers (``parallel.exact``, ``parallel.multik``) run one a rank, so
+    this module holds the port's only flush.
 """
 
 from __future__ import annotations

@@ -973,23 +973,6 @@ def multi_k_count_file(
 # ---------------------------------------------------------------------------
 
 
-def _minimizer_windows_fn(k: int, w: int, normalized: bool, on_cuda: bool):
-    """The mesh route's sketch windows of one ASCII batch ``(seqs,
-    lengths)``: the ladder over the key-plane kernel's planes on the card,
-    over :mod:`kmers` windows (the kernel's plain route) on the CPU."""
-    from . import minimizers as _minimizers
-
-    def windows(seqs, lengths):
-        if on_cuda:
-            khi, klo = _key_planes(k, seqs, lengths, None, False, normalized)
-            return _minimizers.window_minimizers_from_planes(khi, klo, k, w)
-        return _minimizers.window_minimizers(
-            seqs, lengths, k, w, normalized=normalized
-        )
-
-    return windows
-
-
 def _minimizer_keys_fn(k: int, w: int, packed: bool, normalized: bool,
                        meter=None):
     """Flat masked (hi | None, lo) sketch keys of one placed batch: the
@@ -1149,26 +1132,22 @@ def _minimizer_spectrum_sharded(
     checkpoint_path, resume_from, save, meter, double_buffer,
 ):
     """:func:`minimizer_spectrum_file` over a mesh (JAX's ``mesh``
-    branch): ASCII rows, the sketch's windows from the key-plane kernel on
-    the card, a ``parallel.ShardedSpectrumAccumulator``."""
+    branch): ASCII rows, the flat driver's sketch keys
+    (:func:`_minimizer_keys_fn`), a ``parallel.ShardedSpectrumAccumulator``."""
     from ..parallel.distributed import refuse_world_above_one
     from ..parallel.exact import (
         ShardedSpectrumAccumulator, _require_data_mesh, _stream_into,
     )
-    from ..parallel.mesh import mesh_device
 
     n_data = _require_data_mesh(mesh)
     refuse_world_above_one(
         "minimizer_spectrum_file(mesh=...)", mesh, path, checkpoint_every,
         checkpoint_path, resume_from,
     )
-    windows = _minimizer_windows_fn(
-        k, w, normalized, mesh_device(mesh).type == "cuda"
-    )
     acc = ShardedSpectrumAccumulator(
         mesh, k, normalized=normalized,
         shard_lanes=_count.SPARSE_FLUSH_LANES,  # the flat driver's flush
-        window_fn=windows,
+        keys_fn=_minimizer_keys_fn(k, w, False, normalized, meter),
         window_lanes=lambda max_l: max(max_l - k - w + 2, 0),
     )
     start_offset = n_bases = 0

@@ -1,18 +1,19 @@
 """Distributed EXACT k-mer spectra for any k <= 31 over a ``data`` mesh.
 
 Counterpart of ``needletail_tpu/parallel/exact.py`` on
-``torch.distributed``.  Every rank owns a disjoint read shard and buffers
-its masked (hi, lo) key planes on its device (from the key-plane kernel,
+``torch.distributed``.  Every rank owns a disjoint read shard and feeds
+its masked (hi, lo) key planes (from the key-plane kernel,
 ``csrc/hash_keys.cu``, on the card, as the flat ``count_file`` takes
-them); each buffer-full resolves on every rank at once with one sort and
-run-length count (``_resolve``, with the slot-compaction cascade on the
-card), each rank merges its sorted runs on the host, and ``finish``
-gathers the ranks' spectra (lengths first, then the runs padded to the
-longest) and merges them, so every rank returns the whole spectrum.
+them) into a ``count.SparseSpectrumAccumulator`` of its own: the flat
+driver's flush, which keeps the rank's spectrum on its device and merges
+each flush into it there.  ``finish`` gathers the ranks' spectra
+(lengths first, then the runs padded to the longest) and merges them, so
+every rank returns the whole spectrum.
 
-The ranks agree on when to flush: each ``add`` votes "my buffer would
-overflow on this batch" (MAX) over a host group, so every rank flushes
-on the same step.
+Each rank flushes when its own buffer fills, and nothing collective runs
+inside a flush: a rank's compaction route touches only its own runs.
+Each ``add`` still votes "this batch alone overflows my buffer" (MAX)
+over a host group, so an oversize batch raises on every rank at once.
 
 Exactness: each window's key lives in exactly one rank's buffer, local
 run counts are exact, and the merges sum duplicates, so the final (keys,
@@ -36,41 +37,6 @@ __all__ = ["ShardedSpectrumAccumulator", "sharded_count_file"]
 
 # default per-rank key-plane budget: 2^23 lanes * 8 B = 64 MiB a rank
 DEFAULT_SHARD_LANES = 1 << 23
-
-# a flush's planes pad to a multiple of this many lanes, as the flat
-# accumulator's (``count.finalize_sparse``) do
-_PAD_LANES = 1 << 20
-
-
-def merge_resolved_shards(
-    out,
-    narrow: bool,
-    device_compact: bool,
-    keys0: np.ndarray,
-    counts0: np.ndarray,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Merge this rank's resolver output (``_resolve``: ``(lo, counts,
-    n)`` narrow or ``(hi, lo, counts, n)``) into its running host
-    spectrum.  With ``device_compact`` the distinct entries sit in a
-    prefix of length ``n``, so only they cross to the host; otherwise the
-    host compacts the whole sorted stream.  Shared by the per-k
-    accumulator and the multi-k one."""
-    if out is None:
-        return keys0, counts0
-    if narrow:
-        hi = None
-        lo, counts, n = out
-    else:
-        hi, lo, counts, n = out
-    if device_compact:
-        n = int(n)
-        if n == 0:
-            return keys0, counts0
-        keys = _count._keys_u64(None if hi is None else hi[:n], lo[:n])
-        cnts = counts[:n].cpu().numpy().astype(np.int64)
-    else:
-        keys, cnts = _count.compact_spectrum(hi, lo, counts)
-    return _count.merge_sorted_spectra(keys0, counts0, keys, cnts)
 
 
 def gather_spectra(
@@ -121,7 +87,9 @@ class ShardedSpectrumAccumulator:
     rank calls it once a step; ``add(None, None)`` where this rank has
     none); ``place`` cuts this rank's rows out of a global host batch.
     ``finish()`` returns ``(keys uint64, counts int64)`` of every rank,
-    sorted by key, exact for any 1 <= k <= 31.
+    sorted by key, exact for any 1 <= k <= 31.  Each rank's keys go to a
+    ``count.SparseSpectrumAccumulator`` that flushes every
+    ``shard_lanes`` lanes.
     """
 
     def __init__(
@@ -134,23 +102,20 @@ class ShardedSpectrumAccumulator:
         quality_cutoff: Optional[int] = None,
         phred_offset: int = 33,
         packed: bool = False,
-        window_fn=None,
+        keys_fn=None,
         window_lanes=None,
     ) -> None:
-        """``window_fn(seqs, lengths) -> KmerWindows`` overrides the
-        canonical k-mer extraction (e.g. (w, k) minimizer sketches) over
-        ASCII rows; ``window_lanes(max_len) -> int`` must then give the
-        lanes a read of that width yields."""
+        """``keys_fn(data, lengths, vbits) -> (hi | None, lo)`` overrides
+        the canonical k-mer keys (e.g. (w, k) minimizer sketches) with
+        flat masked key planes; ``window_lanes(max_len) -> int`` must then
+        give the lanes a read of that width yields."""
         if not 1 <= k <= 31:
             raise ValueError(f"k must be in [1, 31], got {k}")
         if packed and quality_cutoff is not None:
             raise ValueError("packed transport carries no quality planes")
-        if window_fn is not None and packed:
-            raise ValueError("window_fn extraction consumes ASCII planes")
-        if (window_fn is None) != (window_lanes is None):
-            raise ValueError("window_fn and window_lanes come together")
-        from ..device.pipeline import _count_step_fns, _window_keys
-        from ._resolve import make_sharded_resolver
+        if (keys_fn is None) != (window_lanes is None):
+            raise ValueError("keys_fn and window_lanes come together")
+        from ..device.pipeline import _count_step_fns
 
         _require_data_mesh(mesh)
         self._mesh = mesh
@@ -165,26 +130,10 @@ class ShardedSpectrumAccumulator:
         self._lanes_per_read = window_lanes or (
             lambda max_len: max(max_len - k + 1, 0)
         )
-        # k <= 15 keys fit one uint32 (2k <= 30 bits, below the sentinel):
-        # buffer only the lo plane, and sort one key
-        self._narrow = k <= 15
-        on_cuda = self._dev.type == "cuda"
-        if window_fn is None:
-            self._keys_fn = _count_step_fns(
-                k, packed, canonical, normalized, on_cuda
-            )[1]
-        else:
-            self._keys_fn = lambda s, l, _vb: _window_keys(window_fn(s, l), k)
-        self._parts = []
-        self._lanes = 0
-        self._keys = np.zeros(0, np.uint64)
-        self._counts = np.zeros(0, np.int64)
-        # compact on the card (bounds each flush's pull to its distinct
-        # entries); on the CPU the pull is a local copy
-        self._device_compact = on_cuda
-        self._resolve = make_sharded_resolver(
-            mesh, on_cuda, cascade=on_cuda, narrow=self._narrow
-        )
+        self._keys_fn = keys_fn or _count_step_fns(
+            k, packed, canonical, normalized, self._dev.type == "cuda"
+        )[1]
+        self._acc = _count.SparseSpectrumAccumulator(flush_lanes=self._cap)
 
     def place(self, seqs, lengths, quals=None):
         """This rank's rows of a global host batch, on its device."""
@@ -201,24 +150,20 @@ class ShardedSpectrumAccumulator:
         """Ingest this rank's rows of one step.  In packed mode ``seqs``
         is the ``[B, L/4]`` code plane and ``vbits`` the optional validity
         plane (None = clean).  ``seqs=None`` adds nothing and still joins
-        the step's flush vote."""
+        the step's vote."""
         lanes = 0
         if seqs is not None:
             b, l = seqs.shape
             lanes = self.lanes_for(b, l * 4 if self._packed else l)
             if self._quality_cutoff is not None and quals is None:
                 raise ValueError("quality_cutoff needs FASTQ qualities")
-        flush, too_big = vote(
-            [self._lanes + lanes > self._cap, lanes > self._cap], self._control
-        )
+        (too_big,) = vote([lanes > self._cap], self._control)
         if too_big:
             raise ValueError(
                 f"one batch produces more lanes than the buffer "
                 f"({self._cap}) on some rank; raise shard_lanes or shrink "
                 "the batch"
             )
-        if flush:
-            self._flush()
         if lanes == 0:
             return
         dev = self._dev
@@ -229,39 +174,20 @@ class ShardedSpectrumAccumulator:
             seqs = quality_mask(seqs, to_device(quals, dev), self._qthresh)
         if vbits is not None:
             vbits = to_device(vbits, dev)
-        hi, lo = self._keys_fn(seqs, lengths, vbits)
-        self._parts.append((None if self._narrow else hi, lo))
-        self._lanes += lo.numel()
-
-    def _flush(self) -> None:
-        """Resolve every rank's buffer (a collective on the card)."""
-        if self._parts:
-            hi, lo = _count._concat_pad_parts(self._parts, _PAD_LANES)
-            bufs = (lo,) if self._narrow else (hi, lo)
-        else:
-            bufs = (None,) if self._narrow else (None, None)
-        out = self._resolve(*bufs)
-        self._keys, self._counts = merge_resolved_shards(
-            out, self._narrow, self._device_compact, self._keys, self._counts
-        )
-        self._parts = []
-        self._lanes = 0
+        self._acc.add(*self._keys_fn(seqs, lengths, vbits))
 
     def finish(self) -> Tuple[np.ndarray, np.ndarray]:
         """``(keys uint64, counts int64)`` of every rank, keys ascending,
         on every rank.  The accumulator stays live (checkpoint
         snapshots)."""
-        self._flush()
-        return gather_spectra(self._keys, self._counts, self._control)
+        return gather_spectra(*self._acc.finish(), self._control)
 
     def restore(self, keys: np.ndarray, counts: np.ndarray) -> None:
         """Re-seed the merged spectrum (checkpoint resume; fresh only).
         Rank 0 of the data dim holds it, so ``finish`` counts it once."""
-        if self._parts or self._keys.size:
-            raise ValueError("restore() only applies to a fresh accumulator")
-        if data_rank(self._mesh)[1] == 0:
-            self._keys = np.asarray(keys, dtype=np.uint64)
-            self._counts = np.asarray(counts, dtype=np.int64)
+        if data_rank(self._mesh)[1]:
+            keys, counts = keys[:0], counts[:0]
+        self._acc.restore(keys, counts)
 
 
 def sharded_count_file(

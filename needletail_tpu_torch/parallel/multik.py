@@ -9,12 +9,12 @@ Counterpart of ``needletail_tpu/parallel/multik.py`` on
     reduce-scatters it over ``data`` (rank d owns the bins ``[d*4^k/N,
     (d+1)*4^k/N)``), accumulated in int64: the hash pipeline's topology
     with exact bins;
-  * for every k > 9 buffers its masked keys (one plane for k <= 15, (hi,
-    lo) above; from the key-plane kernel on the card) per k; the buffers
-    resolve on every rank at once (``_resolve``), each rank merges its
-    runs on the host, ``finish`` gathers and merges the ranks' spectra,
-    and k = 10..12 densify there so the dense ``[4^k]`` output of
-    MAX_DENSE_K holds.
+  * for every k > 9 feeds its masked keys (one plane for k <= 15, (hi,
+    lo) above; from the key-plane kernel on the card) into that k's
+    ``count.SparseSpectrumAccumulator``, as the flat
+    ``multi_k_count_file`` does; ``finish`` gathers and merges the ranks'
+    spectra, and k = 10..12 densify there so the dense ``[4^k]`` output
+    of MAX_DENSE_K holds.
 
 Every rank runs every dense k's reduce-scatter every step, in the same
 order, whatever its batch's width (zeros where no window fits): ranks
@@ -39,12 +39,7 @@ from .distributed import (
     control_group, data_rank, gather_table, to_device, vote,
 )
 from .exact import (
-    DEFAULT_SHARD_LANES,
-    _PAD_LANES,
-    _require_data_mesh,
-    _stream_into,
-    gather_spectra,
-    merge_resolved_shards,
+    DEFAULT_SHARD_LANES, _require_data_mesh, _stream_into, gather_spectra,
 )
 from .mesh import mesh_device
 
@@ -80,8 +75,6 @@ class ShardedMultiKAccumulator:
                 raise ValueError(f"every k must be in [1, 31], got {k}")
         if packed and quality_cutoff is not None:
             raise ValueError("packed transport carries no quality planes")
-        from ._resolve import make_sharded_resolver
-
         self._mesh = mesh
         self._n_data = _require_data_mesh(mesh)
         self._dev = mesh_device(mesh)
@@ -114,20 +107,12 @@ class ShardedMultiKAccumulator:
             k: torch.zeros(4**k // self._n_data, dtype=torch.int64, device=self._dev)
             for k in self._dense_ks
         }
-        # k <= 15 keys fit one uint32: one plane, one sort key
-        self._narrow = {k: k <= 15 for k in self._sparse_ks}
-        self._parts = {k: [] for k in self._sparse_ks}
-        self._lanes = {k: 0 for k in self._sparse_ks}
-        self._keys = {k: np.zeros(0, np.uint64) for k in self._sparse_ks}
-        self._counts = {k: np.zeros(0, np.int64) for k in self._sparse_ks}
-        self._ingested = False
-        on_cuda = self._dev.type == "cuda"
-        self._on_cuda = on_cuda
-        self._device_compact = on_cuda
-        self._resolvers = {
-            nw: make_sharded_resolver(mesh, on_cuda, cascade=on_cuda, narrow=nw)
-            for nw in sorted(set(self._narrow.values()))
+        self._sparse = {
+            k: _count.SparseSpectrumAccumulator(flush_lanes=self._cap)
+            for k in self._sparse_ks
         }
+        self._ingested = False
+        self._on_cuda = self._dev.type == "cuda"
 
     def lanes_for(self, batch_rows: int, max_len: int, k: int) -> int:
         return batch_rows * max(max_len - k + 1, 0)
@@ -143,17 +128,14 @@ class ShardedMultiKAccumulator:
             lanes = {k: self.lanes_for(b, l, k) for k in self._sparse_ks}
             if self._quality_cutoff is not None and quals is None:
                 raise ValueError("quality_cutoff needs FASTQ qualities")
-        flush, too_big = vote([
-            any(self._lanes[k] + n > self._cap for k, n in lanes.items()),
-            any(n > self._cap for n in lanes.values()),
-        ], self._control)
+        (too_big,) = vote(
+            [any(n > self._cap for n in lanes.values())], self._control
+        )
         if too_big:
             raise ValueError(
                 "one batch overflows the per-rank key buffer on some rank; "
                 "raise shard_lanes or shrink the batch"
             )
-        if flush:
-            self._flush()
         windows = self._windows_fn(seqs, lengths, quals, vbits)
         for k in self._dense_ks:
             win = windows(k)
@@ -165,11 +147,8 @@ class ShardedMultiKAccumulator:
             dist.reduce_scatter_tensor(part, local, group=self._group)
             self._dense[k] += part
         for k in self._sparse_ks:
-            if not lanes[k]:
-                continue
-            hi, lo = windows(k, keys=True)
-            self._parts[k].append((None if self._narrow[k] else hi, lo))
-            self._lanes[k] += lo.numel()
+            if lanes[k]:
+                self._sparse[k].add(*windows(k, keys=True))
         self._ingested = True
 
     def _windows_fn(self, seqs, lengths, quals, vbits):
@@ -210,36 +189,17 @@ class ShardedMultiKAccumulator:
 
         return windows
 
-    def _flush(self) -> None:
-        """Resolve every k's buffers on every rank (collectives on the
-        card)."""
-        for k in self._sparse_ks:
-            narrow = self._narrow[k]
-            if self._parts[k]:
-                hi, lo = _count._concat_pad_parts(self._parts[k], _PAD_LANES)
-                bufs = (lo,) if narrow else (hi, lo)
-            else:
-                bufs = (None,) if narrow else (None, None)
-            out = self._resolvers[narrow](*bufs)
-            self._keys[k], self._counts[k] = merge_resolved_shards(
-                out, narrow, self._device_compact, self._keys[k],
-                self._counts[k],
-            )
-            self._parts[k] = []
-            self._lanes[k] = 0
-
     def snapshot(self) -> Dict[str, np.ndarray]:
         """Host snapshot for checkpointing: flushes the sparse buffers and
         gathers every table (collectives); the accumulator stays live.
         Keys: ``dense_{k}`` int64 arrays, ``keys_{k}``/``counts_{k}``
         sorted sparse pairs."""
-        self._flush()
         arrays: Dict[str, np.ndarray] = {}
         for k in self._dense_ks:
             arrays[f"dense_{k}"] = gather_table(self._dense[k], self._group)
         for k in self._sparse_ks:
             keys, counts = gather_spectra(
-                self._keys[k], self._counts[k], self._control
+                *self._sparse[k].finish(), self._control
             )
             arrays[f"keys_{k}"] = keys
             arrays[f"counts_{k}"] = counts
@@ -266,11 +226,10 @@ class ShardedMultiKAccumulator:
                 # sparse pairs
                 t = np.asarray(arrays[f"dense_{k}"]).astype(np.int64)
                 nz = np.flatnonzero(t)
-                self._keys[k] = nz.astype(np.uint64)
-                self._counts[k] = t[nz]
-                continue
-            self._keys[k] = np.asarray(arrays[f"keys_{k}"], dtype=np.uint64)
-            self._counts[k] = np.asarray(arrays[f"counts_{k}"], dtype=np.int64)
+                self._sparse[k].restore(nz.astype(np.uint64), t[nz])
+            else:
+                self._sparse[k].restore(arrays[f"keys_{k}"],
+                                        arrays[f"counts_{k}"])
 
     def finish(
         self,

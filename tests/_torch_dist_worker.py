@@ -206,8 +206,8 @@ def suite_exact(rank, world, out, put):
     from needletail_tpu_torch.parallel import (
         make_mesh, sharded_count_file, sharded_multi_k_count_file,
     )
-    from needletail_tpu_torch.parallel import _resolve, exact
     from needletail_tpu_torch.parallel.distributed import control_group
+    from needletail_tpu_torch.parallel.exact import gather_spectra
 
     mesh = make_mesh(data=world, table=1)
 
@@ -217,23 +217,18 @@ def suite_exact(rank, world, out, put):
         put(f"{name}_keys", keys)
         put(f"{name}_counts", counts)
 
-    flushes = [0]
-    merge = exact.merge_resolved_shards
-
-    def counted(*args):
-        flushes[0] += 1
-        return merge(*args)
-
-    exact.merge_resolved_shards = counted
     spectrum("k21", sharded_count_file(FQ, 21, mesh, batch_size=512,
                                        host_workers=1))
     spectrum("k31", sharded_count_file(FA_28S, 31, mesh, batch_size=64,
                                        host_workers=1))
-    flushes[0] = 0
+    # this rank's flushes and where each merged into its spectrum
+    C.reset_flush_routes()
+    C.reset_merge_routes()
     spectrum("flushes", sharded_count_file(FQ, 9, mesh, batch_size=32,
                                            shard_lanes=4096, host_workers=1))
-    put("flushes_count", np.array(flushes[0]))
-    exact.merge_resolved_shards = merge
+    put("flushes_count", np.array(sum(C.FLUSH_ROUTES.values())))
+    put("flushes_merges", np.array([C.MERGE_ROUTES["device"],
+                                    C.MERGE_ROUTES["host"]]))
     spectrum("q20", sharded_count_file(FQ, 21, mesh, batch_size=512,
                                        quality_cutoff=20, host_workers=1))
     mixed = os.path.join(out, "mixed.fq")
@@ -271,8 +266,9 @@ def suite_exact(rank, world, out, put):
         FQ, 21, 11, mesh=mesh, batch_size=512, host_workers=1,
         device="cpu"))
 
-    # the resolver: the cascade (forced on the CPU) against the safe route,
-    # and the lanes each rank compacted, which show the route it took
+    # each rank's flush: the cascade (forced on the CPU) against the
+    # stable partition, and the lanes this rank compacted, which show the
+    # route it took
     compacted = []
     compact = C.compact_runs_device
 
@@ -284,20 +280,22 @@ def suite_exact(rank, world, out, put):
     for case in RESOLVE_CASES:
         for narrow in (False, True):
             hi, lo = resolve_buffer(case, rank, narrow)
-            planes = (lo,) if narrow else (hi, lo)
-            bufs = tuple(torch.from_numpy(p.view(np.int32)) for p in planes)
+            parts = [tuple(None if p is None else torch.from_numpy(
+                p.view(np.int32)) for p in (hi, lo))]
             name = f"resolve_{case}_{'narrow' if narrow else 'wide'}"
+
+            def resolved(cascade):
+                h, l, c, _ = C._resolve_flush(parts, RESOLVE_CAP, True,
+                                              cascade, False, None)
+                return C._keys_u64(h, l), c.numpy().astype(np.int64)
+
             compacted.clear()
-            fast = _resolve.make_sharded_resolver(mesh, True, True, narrow)(*bufs)
+            got = resolved(True)
             put(f"{name}_lanes", np.array(compacted[0]))
-            safe = _resolve.make_sharded_resolver(mesh, True, False, narrow)(*bufs)
-            got = exact.merge_resolved_shards(
-                fast, narrow, True, np.zeros(0, np.uint64), np.zeros(0, np.int64))
-            want = exact.merge_resolved_shards(
-                safe, narrow, True, np.zeros(0, np.uint64), np.zeros(0, np.int64))
+            want = resolved(False)
             put(f"{name}_equal", np.array_equal(got[0], want[0])
                 and np.array_equal(got[1], want[1]))
-            keys, counts = exact.gather_spectra(*got, control_group(mesh))
+            keys, counts = gather_spectra(*got, control_group(mesh))
             put(f"{name}_keys", keys)
             put(f"{name}_counts", counts)
     C.compact_runs_device = compact

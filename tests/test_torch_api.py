@@ -556,6 +556,7 @@ NO_MODULE = {
     "needletail_tpu.device.pallas_kernels": "needletail_tpu_torch.device.kernels",
     "needletail_tpu.device._ladder": "needletail_tpu_torch.device.kmers",
     "needletail_tpu.io.parallel_host": "needletail_tpu_torch.io.framing",
+    "needletail_tpu.parallel._resolve": "needletail_tpu_torch.device.count",
 }
 # names ROADMAP.md records as having no counterpart, with their reasons
 NO_COUNTERPART = {

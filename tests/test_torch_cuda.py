@@ -577,9 +577,14 @@ def nccl_world_of_one(cuda_device):
 
 def test_cuda_sharded_drivers_match_plain(nccl_world_of_one, tmp_path):
     """The sharded drivers on a NCCL world of one, through the hand
-    kernels, equal to the flat drivers' plain versions."""
+    kernels, equal to the flat drivers' plain versions: the exact driver
+    also with a buffer that flushes several times, each later flush
+    merged into the spectrum on the card, and the sketch over the mesh
+    through the sketch kernel."""
     from needletail_tpu_torch.device import kernels as K
-    from needletail_tpu_torch.device.pipeline import count_file, hash_count_file
+    from needletail_tpu_torch.device.pipeline import (
+        count_file, hash_count_file, minimizer_spectrum_file,
+    )
     from needletail_tpu_torch.parallel import (
         sharded_count_file, sharded_hash_count_file, sharded_multi_k_count_file,
     )
@@ -596,9 +601,20 @@ def test_cuda_sharded_drivers_match_plain(nccl_world_of_one, tmp_path):
     assert got[0] == want[0]
     for a, b in zip(got[1], want[1]):
         assert np.array_equal(a, b)
+    # 55,296 lanes a batch: a flush every second batch
+    got = sharded_count_file(FQ, 21, mesh, shard_lanes=1 << 16, **kw)
+    assert got[0] == want[0]
+    for a, b in zip(got[1], want[1]):
+        assert np.array_equal(a, b)
     n, spec = sharded_multi_k_count_file(FQ, (4, 21, 31), mesh, **kw)
     assert n == GOLD[0] and int(spec[4].sum()) == 243_982
-    for name in ("hash_keys", "histogram16", "key_planes", "compact_slots"):
+    got = minimizer_spectrum_file(FQ, 21, 11, mesh=mesh, **kw)
+    want = minimizer_spectrum_file(FQ, 21, 11, device="cpu", **kw)
+    assert got[0] == want[0]
+    for a, b in zip(got[1], want[1]):
+        assert np.array_equal(a, b)
+    for name in ("hash_keys", "histogram16", "key_planes", "compact_slots",
+                 "merge_spectra", "minimizer_sketch"):
         assert K.LAUNCHES[name] > 0, name
 
 

@@ -1,5 +1,5 @@
 """The port's sharded exact paths against the JAX package's: the per-rank
-spectrum accumulator and resolver, multi-k, the genome and the sketch.
+spectrum accumulator and its flush, multi-k, the genome and the sketch.
 
 Gloo worlds of 2 and 4 run ``tests/_torch_dist_worker.py``'s ``exact``
 suite (no JAX in their processes); every rank returns the whole result,
@@ -174,6 +174,15 @@ def test_buffers_flush_many_times(worlds, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_sharded_flushes_merge_on_the_device(worlds, world):
+    """Each rank keeps its spectrum on its device and merges every later
+    flush into it there, as the flat accumulator does."""
+    for r in worlds.get(world):
+        device, host = (int(x) for x in r["flushes_merges"])
+        assert device > 0 and host == 0, (device, host)
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_bucketed_equals_flat(worlds, world):
     for r in worlds.get(world):
         _equal(_spectrum(r, "mixed_bucketed"),
@@ -201,25 +210,29 @@ def _oracle(case, narrow, world):
     return np.unique(keys[keys != np.uint64(sentinel)], return_counts=True)
 
 
-# lanes compacted after the cascade: the second pass's output where both
-# passes held everywhere, the first's where the second overflowed, the
-# whole stream where any rank's first pass overflowed
-ROUTE_LANES = {"runs": 1024, "second": 2048, "dense": W.RESOLVE_CAP,
-               "one": W.RESOLVE_CAP}
+# lanes rank r compacted after its cascade: the second pass's output
+# where both passes held, the first's where the second overflowed, the
+# whole stream where its first pass overflowed; each rank routes its own
+ROUTE_LANES = {
+    "runs": lambda r: 1024,
+    "second": lambda r: 2048,
+    "dense": lambda r: W.RESOLVE_CAP,
+    "one": lambda r: W.RESOLVE_CAP if r == 0 else 1024,
+}
 
 
 @pytest.mark.parametrize("narrow", [False, True])
 @pytest.mark.parametrize("case", list(W.RESOLVE_CASES))
 @pytest.mark.parametrize("world", WORLDS)
 def test_resolver_routes(worlds, world, case, narrow):
-    """The cascade equals the safe route on every rank, and every rank
-    takes the same route: with overflow on rank 0 only ("one"), every
-    rank compacts its whole stream."""
+    """The cascade equals the stable partition on every rank, and each
+    rank takes its own route: with overflow on rank 0 only ("one"), rank
+    0 alone compacts its whole stream; the gathered spectrum is exact."""
     name = f"resolve_{case}_{'narrow' if narrow else 'wide'}"
     keys, counts = _oracle(case, narrow, world)
-    for r in worlds.get(world):
+    for rank, r in enumerate(worlds.get(world)):
         assert bool(r[f"{name}_equal"])
-        assert int(r[f"{name}_lanes"]) == ROUTE_LANES[case]
+        assert int(r[f"{name}_lanes"]) == ROUTE_LANES[case](rank)
         np.testing.assert_array_equal(r[f"{name}_keys"], keys)
         np.testing.assert_array_equal(r[f"{name}_counts"], counts)
 
