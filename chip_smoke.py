@@ -241,7 +241,7 @@ class Errors:
         self.worst = {
             "hash_keys": 0, "histogram16": 0, "key_planes": 0,
             "compact_slots": 0, "hash_tally": 0, "block_sort": 0,
-            "merge_spectra": 0, "minimizer_sketch": 0,
+            "merge_spectra": 0, "minimizer_sketch": 0, "run_counts": 0,
         }
 
     def hold(self, name: str, what: str, got, want) -> None:
@@ -585,6 +585,33 @@ def check_merge_spectra(errors: Errors, rng) -> int:
     return len(cases)
 
 
+def hold_runs(errors: Errors, what: str, keys, wide: bool) -> None:
+    from needletail_tpu_torch.device import kernels as K_
+
+    errors.hold_all("run_counts", what, K_.run_counts(keys, wide),
+                    K_.run_counts_plain(keys, wide), ("hi", "lo", "counts"))
+
+
+def check_run_counts(errors: Errors, rng) -> int:
+    """The run count against its plain version on the streams of
+    ``synth.run_count_streams``, wide and narrow, each also from a buffer
+    8 bytes off 16-byte alignment (the kernel's scalar loads)."""
+    import torch
+
+    from needletail_tpu_torch.utils.synth import run_count_streams
+
+    cases = 0
+    for wide in (True, False):
+        for what, keys in run_count_streams(rng, wide).items():
+            k = torch.from_numpy(keys).to("cuda")
+            off = torch.empty(k.numel() + 1, dtype=torch.int64, device="cuda")[1:]
+            off.copy_(k)
+            for how, t in (("", k), (", 8 bytes off", off)):
+                hold_runs(errors, f"{what}{how} wide={wide}", t, wide)
+                cases += 1
+    return cases
+
+
 def main_path_batch(path: str):
     """The first batch the main paths frame, as device tensors: the packed
     planes and the ASCII planes at batch 131072 x 128."""
@@ -631,6 +658,39 @@ def main_path_flush(path: str, k: int):
         w = hi.shape[1] - k + 1
         parts.append((hi[:, :w].reshape(-1), lo[:, :w].reshape(-1)))
     return C_._concat_pad_parts(parts, 1 << 20)
+
+
+def time_run_counts(errors: Errors, keys) -> dict:
+    """The run count at the main-path flush (sorted wide keys), beside its
+    plain version and the library call that version spends its time in,
+    ``scatter_reduce_`` "amin" of every lane's position into its run's
+    slot (the port's route before the kernel; it is no longer called)."""
+    import torch
+
+    from needletail_tpu_torch.bench import cuda_ms
+    from needletail_tpu_torch.device import kernels as K_
+
+    hold_runs(errors, "main-path flush", keys, True)
+    n = keys.numel()
+    first = torch.ones(n, dtype=torch.bool, device=keys.device)
+    first[1:] = keys[1:] != keys[:-1]
+    run_id = first.cumsum(0) - 1
+    pos = torch.arange(n, device=keys.device)
+    heads = torch.full((n + 1,), n, dtype=torch.int64, device=keys.device)
+    sentinel = torch.iinfo(torch.int64).max
+    padding = int((keys == sentinel).sum())
+    return {
+        "ms": cuda_ms(lambda: K_.run_counts(keys, True), 20),
+        "plain_ms": cuda_ms(lambda: K_.run_counts_plain(keys, True), 5,
+                            warmup=1),
+        "library_ms": cuda_ms(
+            lambda: heads.scatter_reduce_(0, run_id, pos, "amin"), 5,
+            warmup=1),
+        "library": 'torch.Tensor.scatter_reduce_ "amin"',
+        # the key read, the count and both planes written
+        "bound": bound_ms(n * (8 + 4 + 8), 0),
+        "shape": f"[{n}] lanes k={K}, {padding} sentinel",
+    }
 
 
 # per-lane operations of the functions, counted as the least work that
@@ -772,7 +832,10 @@ def time_kernels(errors: Errors, path: str) -> dict:
     flush_lanes = lo.numel()
     packed_keys = C_._pack(hi, lo)
     sort_ms = cuda_ms(lambda: torch.sort(packed_keys), 5, warmup=1)
+    sorted_keys = torch.sort(packed_keys).values
     del packed_keys
+    out["run_counts"] = time_run_counts(errors, sorted_keys)
+    del sorted_keys
     runs_ms = cuda_ms(lambda: C_.unique_counts(hi, lo), 5, warmup=1)
     runs = C_.unique_counts(hi, lo)
     del hi, lo
@@ -1056,12 +1119,15 @@ def run_exact_main_path(big: Path, card: str) -> dict:
         total = int(result[1][1].sum())
         if k == K and total != GOLD_TOTAL_K21 * COPIES:
             raise AssertionError(f"exact main path k={k}: {total} k-mers")
-        for name in ("key_planes", "compact_slots"):
-            if launches[name] <= 0:
-                raise AssertionError(f"exact main path k={k} launched no {name}")
-        # one flush, its runs compacted by the cascade
+        launched(f"exact main path k={k}", launches, "key_planes",
+                 "run_counts", "compact_slots")
+        # one flush, its runs compacted by the cascade, counted by one
+        # run-count launch
         if flushes != {"cascade": 1}:
             raise AssertionError(f"exact main path k={k}: flushes {flushes}")
+        if launches["run_counts"] != 1:
+            raise AssertionError(f"exact main path k={k}: "
+                                 f"{launches['run_counts']} run counts")
         log(f"exact main path k={k}: {result[0]} bases, {total} k-mers, "
             f"{len(result[1][0])} distinct; launches {launches}; flushes "
             f"{flushes}; first run {first_s:.3f} s")
@@ -1120,6 +1186,10 @@ def run_merged_flushes(big: Path, ref, kw) -> dict:
     if launches <= 0 or merges != {"device": launches, "host": 0}:
         raise AssertionError(
             f"merged flushes: {launches} merge launches, merges {merges}")
+    if K_.LAUNCHES["run_counts"] != sum(flushes.values()):
+        raise AssertionError(
+            f"merged flushes: {K_.LAUNCHES['run_counts']} run counts for "
+            f"flushes {flushes}")
     log(f"merged flushes k={K} at {MERGE_FLUSH_LANES} lanes a flush: equal to "
         f"{COPIES} x one copy; flushes {flushes}, merges {merges}, "
         f"{wall:.4f} s")
@@ -1132,7 +1202,7 @@ PORT_KERNELS = (
     "window_kernel", "histogram16_kernel", "sum_partials_kernel",
     "compact_slots_kernel", "tile_kernel", "split_kernel", "merge_kernel",
     "minimizer_sketch_kernel", "sketch_block_minima_kernel",
-    "sketch_from_block_minima_kernel",
+    "sketch_from_block_minima_kernel", "run_counts_kernel",
 )
 
 
@@ -1141,6 +1211,7 @@ KERNEL_SYMBOL = {
     "hash_keys": "window_kernel", "key_planes": "window_kernel",
     "histogram16": "histogram16_kernel", "compact_slots": "compact_slots_kernel",
     "minimizer_sketch": "minimizer_sketch_kernel",
+    "run_counts": "run_counts_kernel",
 }
 
 
@@ -1671,7 +1742,8 @@ def run_quality_path(big: Path, small: Path, card: str) -> dict:
     launches = dict(K_.LAUNCHES)
     flushes = {r: n for r, n in C_.FLUSH_ROUTES.items() if n}
     expect_spectrum(got, COPIES, ref, "quality path k=21")
-    launched("quality path k=21", launches, "key_planes", "compact_slots")
+    launched("quality path k=21", launches, "key_planes", "run_counts",
+             "compact_slots")
     out["launches"]["k21"] = launches
     log(f"quality path k={K} Q{QUALITY_CUTOFF}: {got[0]} bases, "
         f"{int(got[1][1].sum())} k-mers, {len(got[1][0])} distinct; "
@@ -1820,7 +1892,7 @@ def run_minimizer_path(big: Path, card: str, errors: Errors) -> dict:
         check(run())
         launches = dict(K_.LAUNCHES)
         launched(f"minimizers {name}", launches, "key_planes",
-                 "minimizer_sketch")
+                 "minimizer_sketch", "run_counts")
         best = best_of_2(run, check)
         out[name] = {"launches": launches, "best_s": best,
                      "bases_per_s": COPIES * GOLD_BASES / best}
@@ -1878,7 +1950,8 @@ def run_bucketed_path(tmp: Path, card: str) -> dict:
     got = run(meter)
     launches = dict(K_.LAUNCHES)
     check(got)
-    launched("bucketed path", launches, "key_planes", "compact_slots")
+    launched("bucketed path", launches, "key_planes", "run_counts",
+             "compact_slots")
     log(f"bucketed flushes {dict(C_.FLUSH_ROUTES)}; metered stages json: "
         + json.dumps(meter.as_dict()))
     best = best_of_2(run, check)
@@ -1949,14 +2022,14 @@ def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
                                    sparse_format="arrays", **exact_kw),
                 lambda: sharded_count_file(str(big), K, mesh, **lanes,
                                            **exact_kw),
-                ("key_planes", "compact_slots"),
+                ("key_planes", "run_counts", "compact_slots"),
             ),
             "multi-k": (
                 lambda: multi_k_count_file(str(big), MULTI_KS, device="cuda",
                                            **exact_kw),
                 lambda: sharded_multi_k_count_file(str(big), MULTI_KS, mesh,
                                                    **lanes, **exact_kw),
-                ("histogram16", "key_planes", "compact_slots"),
+                ("histogram16", "key_planes", "run_counts", "compact_slots"),
             ),
             "minimizers": (
                 lambda: minimizer_spectrum_file(
@@ -1965,7 +2038,8 @@ def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
                 lambda: minimizer_spectrum_file(
                     str(big), MINIMIZER_K, MINIMIZER_W, mesh=mesh,
                     **exact_kw),
-                ("key_planes", "minimizer_sketch", "compact_slots"),
+                ("key_planes", "minimizer_sketch", "run_counts",
+                 "compact_slots"),
             ),
             "genome": (
                 lambda: genome_spectrum(
@@ -1976,7 +2050,7 @@ def run_sharded_path(big: Path, small: Path, tmp: Path, card: str) -> dict:
                     str(tmp / "genome.fa"), GENOME_K, tile_len=GENOME_TILE,
                     batch_tiles=GENOME_BATCH_TILES, sparse_format="arrays",
                     mesh=mesh),
-                ("key_planes", "compact_slots"),
+                ("key_planes", "run_counts", "compact_slots"),
             ),
         }
         for name, (flat, sharded, kernels) in paths.items():
@@ -2126,7 +2200,7 @@ def run_compressed_path(big: Path, tmp: Path, table1, card: str) -> dict:
             str(src), K, meter=meter), ("hash_keys", "histogram16"), 0),
         "exact k=21": (lambda src, meter=None: count_file(
             str(src), K, host_workers=4, spill_dir=str(tmp), meter=meter,
-            **kw), ("key_planes", "compact_slots"), 1),
+            **kw), ("key_planes", "run_counts", "compact_slots"), 1),
     }
     try:
         with warnings.catch_warnings():
@@ -2314,11 +2388,12 @@ def run() -> int:
     n_sort = check_block_sort(errors, rng)
     n_buckets = check_bucket_widths(errors, rng)
     n_merge = check_merge_spectra(errors, rng)
+    n_runs = check_run_counts(errors, rng)
     log(f"kernel checks: hash_keys and key_planes {n_window} cases each "
         f"(hash_tally the ASCII ones), key_planes {n_buckets} more at the "
         f"bucket widths {list(BUCKET_WIDTHS)}, histogram16 {n_hist} cases, "
         f"compact_slots {n_compact} cases, block_sort {n_sort} cases, "
-        f"merge_spectra {n_merge} cases equal "
+        f"merge_spectra {n_merge} cases, run_counts {n_runs} cases equal "
         f"to the plain versions at tolerance 0 in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2506,6 +2581,13 @@ def run() -> int:
             minimizers["packed"]["launches"]["minimizer_sketch"],
             errors.worst["minimizer_sketch"], minimizers["sketch"],
         ),
+        kernel_entry(
+            "run_counts", "needletail_tpu_torch/csrc/run_counts.cu",
+            "none: the JAX package's run lengths are an XLA suffix cummin "
+            "(needletail_tpu/device/count.py:154)",
+            exact[K]["launches"]["run_counts"], errors.worst["run_counts"],
+            times["run_counts"],
+        ),
     ]
     kernels[0]["also_replaces"] = f"{pk}:301"
     kernels[2]["also_replaces"] = f"{pk}:324"
@@ -2538,6 +2620,13 @@ def run() -> int:
         "multi-k": multi["launches"]["compact_slots"],
         **{p: n["compact_slots"] for p, n in new_paths.items()
            if n["compact_slots"]},
+    }
+    kernels[-1]["launches_by_path"] = {
+        "exact k=21": exact[K]["launches"]["run_counts"],
+        "genome": genome["launches"]["run_counts"],
+        "multi-k": multi["launches"]["run_counts"],
+        **{p: n["run_counts"] for p, n in new_paths.items()
+           if n["run_counts"]},
     }
     kernels[0]["launches_by_path"] = {"hash": launches["hash_keys"]}
     for path, counts in [*sharded["launches"].items(), *(

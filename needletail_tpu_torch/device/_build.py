@@ -29,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "needletail_tpu_torch"
 
 SOURCES = (
     "hash_keys", "histogram16", "compact_slots", "block_sort", "merge_spectra",
-    "minimizer_sketch",
+    "minimizer_sketch", "run_counts",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -14,7 +14,8 @@ int32 tensors of uint32 bit patterns and the invalid-window sentinel
     pairs with ``lax.sort``; here they pack into one int64 whose sign bit
     is flipped, so a signed ``torch.sort`` gives the unsigned order and
     the sentinel (all ones) becomes ``INT64_MAX`` and sorts last.  Narrow
-    keys (k <= 15, ``hi`` None) sort as their unsigned 32-bit values.
+    keys (k <= 15, ``hi`` None) sort as their unsigned 32-bit values.  The
+    run lengths come from ``kernels.run_counts`` (a hand kernel on CUDA).
   * :func:`compact_runs_cascade`: two passes of the slot-compaction
     kernel shrink a flush up to 64x before the stable partition of
     :func:`compact_runs_device` runs on the remainder.
@@ -188,27 +189,13 @@ def unique_counts(
     length at the first element of each distinct key's run and 0
     elsewhere.  ``hi=None`` is the narrow path (k <= 15 keys fit lo, below
     the sentinel) and returns ``None`` for ``hi_sorted``.  No host sync:
-    run lengths come from the distance to the next run head, found by a
-    scatter of each lane's position to its run id (``amin``) and a gather
-    (JAX takes a suffix ``cummin``, which PyTorch runs as a slow scan with
-    indices).
+    one sort, then ``kernels.run_counts`` (the run-count kernel on the
+    card) unpacks the planes and writes each run head's distance to the
+    next head (JAX takes a suffix ``cummin``).
     """
-    keys = torch.sort(_pack(hi, lo)).values
-    n = keys.shape[0]
-    hi_s, lo_s = _unpack(keys, hi is not None)
-    if n == 0:
-        return hi_s, lo_s, torch.zeros(0, dtype=torch.int32, device=lo.device)
-    first = torch.ones(n, dtype=torch.bool, device=keys.device)
-    first[1:] = keys[1:] != keys[:-1]
-    pos = torch.arange(n, device=keys.device)
-    run_id = first.cumsum(0) - 1
-    # heads[r]: position of run r's head; n past the last run
-    heads = torch.full((n + 1,), n, dtype=torch.int64, device=keys.device)
-    heads.scatter_reduce_(0, run_id, pos, "amin")
-    counts = torch.where(first, heads[run_id + 1] - pos, 0)
-    sentinel = 0xFFFFFFFF if hi is None else torch.iinfo(torch.int64).max
-    counts = torch.where(keys == sentinel, 0, counts).to(torch.int32)
-    return hi_s, lo_s, counts
+    from .kernels import run_counts
+
+    return run_counts(torch.sort(_pack(hi, lo)).values, hi is not None)
 
 
 def mask_keys(windows: KmerWindows) -> Tuple[torch.Tensor, torch.Tensor]:

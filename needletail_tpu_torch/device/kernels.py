@@ -24,7 +24,10 @@ Counterpart of ``needletail_tpu/device/pallas_kernels.py``:
     ``needletail_tpu/device/count.py:merge_sorted_spectra``);
   * :func:`minimizer_sketch` runs ``csrc/minimizer_sketch.cu`` (replaces
     no TPU kernel: the JAX package computes the (w, k) sketch in XLA, in
-    ``needletail_tpu/device/minimizers.py:window_minimizers``).
+    ``needletail_tpu/device/minimizers.py:window_minimizers``);
+  * :func:`run_counts` runs ``csrc/run_counts.cu`` (replaces no TPU
+    kernel: the JAX package takes a flush's run lengths from an XLA suffix
+    ``cummin``, in ``needletail_tpu/device/count.py:unique_counts``).
 
 Key planes are int32 tensors holding uint32 bit patterns, with the
 sentinel 0xFFFFFFFF (-1) on invalid lanes, as the Pallas planes kernel
@@ -75,6 +78,8 @@ __all__ = [
     "merge_sorted_counts_plain",
     "minimizer_sketch",
     "minimizer_sketch_plain",
+    "run_counts",
+    "run_counts_plain",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -86,7 +91,7 @@ BINS = 1 << 16
 LAUNCHES: Dict[str, int] = {
     "hash_keys": 0, "histogram16": 0, "key_planes": 0, "compact_slots": 0,
     "hash_tally": 0, "block_sort": 0, "merge_spectra": 0,
-    "minimizer_sketch": 0,
+    "minimizer_sketch": 0, "run_counts": 0,
 }
 
 
@@ -979,3 +984,89 @@ def minimizer_sketch(
         )
     LAUNCHES["minimizer_sketch"] += 1
     return hi, lo
+
+
+# ---------------------------------------------------------------------------
+# run counts of a sorted key stream
+# ---------------------------------------------------------------------------
+
+
+def _check_run_keys(keys: torch.Tensor) -> None:
+    _check_plane("keys", keys, torch.int64, 1)
+    if not keys.is_contiguous():
+        raise ValueError("keys must be contiguous")
+
+
+def run_counts_plain(
+    keys: torch.Tensor, wide: bool
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`run_counts`: run lengths from the
+    distance to the next run head, found by a scatter of each lane's
+    position to its run id (``amin``) and a gather (JAX takes a suffix
+    ``cummin``, which PyTorch runs as a slow scan with indices)."""
+    from .count import _unpack
+
+    _check_run_keys(keys)
+    n = keys.shape[0]
+    hi_s, lo_s = _unpack(keys, wide)
+    if n == 0:
+        return hi_s, lo_s, torch.zeros(0, dtype=torch.int32, device=keys.device)
+    first = torch.ones(n, dtype=torch.bool, device=keys.device)
+    first[1:] = keys[1:] != keys[:-1]
+    pos = torch.arange(n, device=keys.device)
+    run_id = first.cumsum(0) - 1
+    # heads[r]: position of run r's head; n past the last run
+    heads = torch.full((n + 1,), n, dtype=torch.int64, device=keys.device)
+    heads.scatter_reduce_(0, run_id, pos, "amin")
+    counts = torch.where(first, heads[run_id + 1] - pos, 0)
+    sentinel = torch.iinfo(torch.int64).max if wide else 0xFFFFFFFF
+    counts = torch.where(keys == sentinel, 0, counts).to(torch.int32)
+    return hi_s, lo_s, counts
+
+
+def _run_counts_lib() -> ctypes.CDLL:
+    lib = _build.load("run_counts")
+    fn = lib.nt_run_counts
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, ctypes.c_longlong, i, p, p, p, p]
+        fn.restype = i
+    return lib
+
+
+def run_counts(
+    keys: torch.Tensor, wide: bool
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Unpacked planes and run lengths of a sorted packed key stream.
+
+    ``keys``: int64 ``[N]``, ascending, as ``torch.sort`` orders
+    ``count._pack``'s keys (``wide``: k > 15 keys with the sign bit
+    flipped, the sentinel ``INT64_MAX``; else uint32 values, the sentinel
+    0xFFFFFFFF).  Returns ``(hi, lo, counts)``, int32 ``[N]`` each: the
+    key planes (``hi`` None unless ``wide``) and, at the first lane of
+    each run, its length; 0 at every other lane and on the sentinel's run.
+    On the GPU one launch with no atomics: a head finds the next head in
+    its tile by ballot, and the one run that crosses the tile's end
+    searches on in device memory.
+    """
+    _check_run_keys(keys)
+    if not _on_cuda(keys):
+        return run_counts_plain(keys, wide)
+    dev = keys.device
+    lo = torch.empty(keys.numel(), dtype=torch.int32, device=dev)
+    hi = torch.empty_like(lo) if wide else None
+    counts = torch.empty_like(lo)
+    if keys.numel() == 0:
+        return hi, lo, counts
+    fn = _run_counts_lib().nt_run_counts
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            keys.data_ptr(), keys.numel(), int(wide),
+            None if hi is None else hi.data_ptr(), lo.data_ptr(),
+            counts.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"run_counts kernel launch failed: CUDA error {err}")
+    LAUNCHES["run_counts"] += 1
+    return hi, lo, counts

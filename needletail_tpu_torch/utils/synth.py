@@ -1,8 +1,8 @@
 """Seeded synthetic inputs: read planes for holding kernels against their
 plain versions (the tests and ``chip_smoke.py`` use them), the
 whole-genome FASTA of the genome-spectrum path, a FASTQ of mixed read
-lengths for the bucketed path, and pairs of sorted spectra for the
-spectrum merge.
+lengths for the bucketed path, pairs of sorted spectra for the spectrum
+merge, and sorted key streams for the run count.
 
 Every input comes from a numpy ``Generator``, so the JAX package, the
 port's plain versions and its CUDA kernels all see the same bytes.
@@ -18,7 +18,7 @@ from ..encoding import pack_codes_host_rows
 __all__ = [
     "CLEAN", "DIRTY", "random_reads", "packed_batch", "packed_rows",
     "odd_offset_view", "synthetic_genome", "mixed_length_fastq",
-    "spectra_pair", "merge_edge_cases",
+    "spectra_pair", "merge_edge_cases", "run_count_streams",
 ]
 
 # case-folded bases only: every in-length byte encodes
@@ -217,3 +217,53 @@ def merge_edge_cases(rng: np.random.Generator, tile: int = 2048):
         cases[name] = (a, rng.integers(1, 1000, a.size), b,
                        rng.integers(1, 1000, b.size))
     return cases
+
+
+def _runs_of(rng: np.random.Generator, lengths, wide: bool) -> np.ndarray:
+    """Runs of the given lengths of distinct ascending packed keys, all
+    below the sentinel."""
+    lengths = np.asarray(lengths, np.int64)
+    top = _I64_MAX - 1 if wide else 0xFFFFFFFE
+    low = _I64_MIN if wide else 0
+    pool = np.unique(rng.integers(low, top, 2 * lengths.size + 16,
+                                  dtype=np.int64))
+    keys = np.sort(rng.choice(pool, lengths.size, replace=False))
+    return np.repeat(keys, lengths)
+
+
+def run_count_streams(rng: np.random.Generator, wide: bool, tile: int = 1024):
+    """``{name: keys}``: sorted int64 key streams as ``count._pack`` packs
+    them (``wide``: the sentinel INT64_MAX, else 0xFFFFFFFF), for holding
+    the run count against its plain version: empty, one lane, all
+    sentinel, no sentinel, all keys distinct, one key over more than 2^20
+    lanes, runs that end exactly on a ``tile``-lane edge and one lane past
+    it, a sentinel run that starts mid-tile, and runs of 100-500 equal keys
+    (a minimizer flush's) with half the lanes sentinel padding."""
+    sentinel = _I64_MAX if wide else 0xFFFFFFFF
+
+    def pad(keys, lanes):
+        return np.concatenate([keys, np.full(lanes - keys.size, sentinel,
+                                             np.int64)])
+
+    # run ends on each tile edge, one lane past one, one lane before one
+    cuts = [tile, 2 * tile + 1, 3 * tile, 3 * tile + 1, 4 * tile - 1,
+            4 * tile, 5 * tile + 1, 6 * tile]
+    edges = np.diff([0, *cuts])
+    long_runs = rng.integers(100, 501, 20 * tile // 300)
+    streams = {
+        "empty": np.zeros(0, np.int64),
+        "one lane": _runs_of(rng, [1], wide),
+        "all sentinel": pad(np.zeros(0, np.int64), 3 * tile + 5),
+        "no sentinel": _runs_of(rng, rng.integers(1, 40, 5 * tile // 20), wide),
+        "all distinct": _runs_of(rng, np.ones(4 * tile + 7, np.int64), wide),
+        "one key over 2^20 lanes": _runs_of(
+            rng, [3, 1, (1 << 20) + 3, 2, 7], wide),
+        "tile edges": pad(_runs_of(rng, edges, wide), 7 * tile),
+        "tile edges, no padding": _runs_of(rng, edges, wide),
+        "sentinel mid-tile": pad(
+            _runs_of(rng, rng.integers(1, 9, 2 * tile // 5), wide),
+            4 * tile + 3),
+        "runs of 100-500, half padding": pad(
+            _runs_of(rng, long_runs, wide), 2 * int(long_runs.sum())),
+    }
+    return streams

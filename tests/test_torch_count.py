@@ -210,6 +210,63 @@ def test_unique_counts_match_jax(wide):
         assert int(got[2][last]) == 2
 
 
+def _run_stream_cases():
+    from needletail_tpu_torch.utils.synth import run_count_streams
+
+    return [(name, wide) for wide in (True, False)
+            for name in run_count_streams(np.random.default_rng(0), wide)]
+
+
+@pytest.mark.parametrize("name,wide", _run_stream_cases())
+def test_run_counts_plain_matches_jax(name, wide):
+    """``kernels.run_counts`` over the sorted packed keys of the run-count
+    edge cases (plain on the CPU) equals ``unique_counts`` of their
+    planes, and JAX's."""
+    from needletail_tpu_torch.utils.synth import run_count_streams
+
+    keys = run_count_streams(np.random.default_rng(len(name)), wide)[name]
+    bits = (keys ^ np.int64(tc._SIGN) if wide else keys).view(np.uint64)
+    lo = (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (bits >> np.uint64(32)).astype(np.uint32) if wide else None
+    got = tkr.run_counts(torch.from_numpy(keys), wide)
+    j, t = _both(hi, lo)
+    want = jc.unique_counts(*j)
+    for g, u, w, part in zip(got, tc.unique_counts(*t), want, ("hi", "lo", "counts")):
+        _equal(g, w, part)
+        assert (g is None and u is None) or torch.equal(g, u), part
+    assert got[2].dtype == torch.int32
+    sentinel = (1 << 63) - 1 if wide else 0xFFFFFFFF
+    assert int(got[2].sum()) == int((keys != sentinel).sum())
+
+
+def test_run_counts_takes_the_plain_route_on_the_cpu():
+    """A CPU tensor runs ``run_counts_plain`` and launches nothing."""
+    hi, lo = _key_stream(3, 3000, True)
+    keys = torch.sort(tc._pack(_i32(hi), _i32(lo))).values
+    tkr.reset_launches()
+    for wide in (True, False):
+        k = keys if wide else keys & 0xFFFFFFFF
+        k = torch.sort(k).values
+        got, want = tkr.run_counts(k, wide), tkr.run_counts_plain(k, wide)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w)
+        assert (got[0] is None) is not wide
+    assert tkr.LAUNCHES["run_counts"] == 0
+
+
+@pytest.mark.parametrize("keys,error", [
+    (torch.zeros(8, dtype=torch.int32), TypeError),
+    (torch.zeros(8, dtype=torch.uint8), TypeError),
+    (torch.zeros((2, 4), dtype=torch.int64), TypeError),
+    (torch.zeros((), dtype=torch.int64), TypeError),
+    (torch.arange(16, dtype=torch.int64)[::2], ValueError),
+])
+def test_run_counts_refuses_bad_keys(keys, error):
+    for fn in (tkr.run_counts, tkr.run_counts_plain):
+        with pytest.raises(error):
+            fn(keys, True)
+
+
 @pytest.mark.parametrize("wide", [True, False])
 def test_compact_runs_match_jax(wide):
     hi, lo = _key_stream(2, 5000, wide)

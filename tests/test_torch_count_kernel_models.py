@@ -20,6 +20,12 @@ search, merges each tile twice in shared memory (run heads, then the
 output at each tile's scanned offset) and adds B's equal key's count to
 A's, wherever B's key lies.
 
+``csrc/run_counts.cu`` cuts a sorted key stream into tiles of
+``RUN_THREADS * RUN_ITEMS`` lanes; a head finds the next head in its
+thread's lanes, its warp (a ballot) or a later warp (a table of each
+warp's first head), and the tile's last run searches past the tile,
+32 probes a step.
+
 The models follow the kernels' steps once, written here; the tests hold
 them against the port's plain versions and JAX's ``mxu_histogram16`` /
 ``mxu_compact_slots`` (the Pallas kernels in interpret mode, as
@@ -559,6 +565,156 @@ def test_merge_model_matches_plain(kind, threads, items):
     np.testing.assert_array_equal(out_c[:n_out], want[1].numpy())
     assert (writes[:n_out] == 1).all() and (writes[n_out:] == 0).all()
     assert int(out_c[:n_out].sum()) == int(ac.sum() + bc.sum())
+
+
+# ---------------------------------------------------------------------------
+# run_counts.cu
+# ---------------------------------------------------------------------------
+
+RUN_THREADS = 256
+RUN_ITEMS = 4
+WARP = 32
+NO_HEAD = (1 << 63) - 1
+
+
+def run_end_model(keys, n, lo, key):
+    """``run_end``: the first position past ``lo`` (whose key is ``key``)
+    that is ``n`` or holds another key, 32 probes a step at strides
+    growing, then narrowing, 32-fold; and the number of steps."""
+    lanes = np.arange(1, WARP + 1)
+
+    def ends(probes):
+        return [bool(p >= n or keys[p] != key) for p in probes]
+
+    stride, steps = 1, 0
+    while True:
+        hit = ends(lo + lanes * stride)
+        steps += 1
+        if any(hit):
+            f = hit.index(True)
+            hi = lo + (f + 1) * stride
+            lo += f * stride
+            break
+        lo += WARP * stride
+        stride *= WARP
+    hi = min(hi, n)
+    while hi - lo > 1:
+        s = -(-(hi - lo) // WARP)
+        hit = ends(np.minimum(lo + lanes * s, hi))
+        steps += 1
+        f = hit.index(True)
+        lo, hi = lo + f * s, min(hi, lo + (f + 1) * s)
+    return hi, steps
+
+
+def run_counts_model(keys, wide, threads=RUN_THREADS, items=RUN_ITEMS):
+    """The kernel's steps over int64 sorted packed keys: ``(counts, writes,
+    searches)``, ``writes`` the number of writers of each output lane and
+    ``searches`` the ``(tile, steps)`` of each search past a tile."""
+    n = keys.size
+    sentinel = (1 << 63) - 1 if wide else 0xFFFFFFFF
+    tile = threads * items
+    counts = np.zeros(n, np.int64)
+    writes = np.zeros(n, np.int64)
+    searches = []
+    for t0 in range(0, n, tile):
+        p = t0 + np.arange(tile)
+        key = np.where(p < n, keys[np.minimum(p, n - 1)], sentinel)
+        prev = np.where((p > 0) & (p <= n), keys[np.clip(p - 1, 0, n - 1)], 0)
+        head = np.where(p < n, (p == 0) | (key != prev), p == n)
+        head = head.reshape(threads, items)
+        key = key.reshape(threads, items)
+        base = t0 + items * np.arange(threads)
+        has = head.any(1)
+        first = np.where(has, base + head.argmax(1), NO_HEAD)
+        # the ballot in each warp, then the table of each warp's first head
+        nxt = np.full(threads, NO_HEAD)
+        for w0 in range(0, threads, WARP):
+            seen = NO_HEAD
+            for t in range(w0 + WARP - 1, w0 - 1, -1):
+                nxt[t] = seen
+                if has[t]:
+                    seen = first[t]
+        warp_first = [
+            first[w0 + int(has[w0:w0 + WARP].argmax())]
+            if has[w0:w0 + WARP].any() else NO_HEAD
+            for w0 in range(0, threads, WARP)
+        ]
+        for t in np.flatnonzero(has & (nxt == NO_HEAD)):
+            later = [f for f in warp_first[t // WARP + 1:] if f != NO_HEAD]
+            nxt[t] = later[0] if later else NO_HEAD
+        last = items - 1 - head[:, ::-1].argmax(1)
+        below = head & (base[:, None] + np.arange(items) < n)
+        last_key = np.array([
+            key[t, np.flatnonzero(below[t])[-1]] if below[t].any() else 0
+            for t in range(threads)
+        ])
+        crosses = (has & (nxt == NO_HEAD) & (base + last < n)
+                   & (last_key != sentinel))
+        assert crosses.sum() <= 1  # only the tile's last run
+        for t in np.flatnonzero(crosses):
+            nxt[t], steps = run_end_model(keys, n, t0 + tile - 1, last_key[t])
+            searches.append((t0 // tile, steps))
+        for t in range(threads):
+            after = nxt[t]
+            for i in range(items - 1, -1, -1):
+                q = base[t] + i
+                if q < n:
+                    if head[t, i] and key[t, i] != sentinel:
+                        assert after != NO_HEAD
+                        counts[q] = after - q
+                    writes[q] += 1
+                if head[t, i]:  # position n too
+                    after = q
+    return counts.astype(np.int32), writes, searches
+
+
+def _run_streams():
+    from needletail_tpu_torch.utils.synth import run_count_streams
+
+    return [(name, wide) for wide in (True, False)
+            for name in run_count_streams(np.random.default_rng(0), wide)]
+
+
+@pytest.mark.parametrize("name,wide", _run_streams())
+def test_run_counts_model_matches_plain(name, wide):
+    """The model over the run-count edge cases equals the plain version,
+    every lane written once; a search past a tile takes a few steps even
+    for a run of 2^20 lanes."""
+    from needletail_tpu_torch.utils.synth import run_count_streams
+
+    keys = run_count_streams(np.random.default_rng(len(name)), wide)[name]
+    counts, writes, searches = run_counts_model(keys, wide)
+    want = tk.run_counts_plain(torch.from_numpy(keys), wide)
+    np.testing.assert_array_equal(counts, want[2].numpy())
+    assert (writes == 1).all()
+    assert all(steps <= 8 for _, steps in searches)
+
+
+@pytest.mark.parametrize("threads,items", [(RUN_THREADS, RUN_ITEMS), (32, 1), (64, 3)])
+@pytest.mark.parametrize("n", [1, 5, 127, 1000, 4099])
+def test_run_counts_model_ragged(threads, items, n):
+    """Ragged lengths and other tile shapes, runs of 1-600 lanes ending
+    with and without sentinel padding."""
+    rng = np.random.default_rng(n + threads)
+    keys = np.sort(rng.integers(0, max(n // 50, 1) + 1, n)).astype(np.int64)
+    keys[n - n // 3:] = 0xFFFFFFFF
+    counts, writes, _ = run_counts_model(keys, False, threads, items)
+    want = tk.run_counts_plain(torch.from_numpy(keys), False)
+    np.testing.assert_array_equal(counts, want[2].numpy())
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("run", [1, 31, 32, 33, 1023, 1024, 1025, 40_000])
+def test_run_end_model_finds_the_end(run):
+    """The search from inside a run of ``run`` lanes, at every start."""
+    keys = np.array([5] * 3 + [9] * run + [12, 12], np.int64)
+    for lo in {3, 3 + run // 2, 3 + run - 1}:
+        end, steps = run_end_model(keys, keys.size, lo, 9)
+        assert end == 3 + run
+        assert steps <= 2 * max(1, int(np.ceil(np.log(run + 1) / np.log(32)))) + 1
+    end, _ = run_end_model(keys[:3 + run], 3 + run, 3, 9)
+    assert end == 3 + run  # the run ends the stream
 
 
 # ---------------------------------------------------------------------------

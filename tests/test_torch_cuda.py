@@ -17,7 +17,7 @@ from needletail_tpu_torch.device import kernels as tk
 from needletail_tpu_torch.device.ops import resolve_vbits, unwire
 from needletail_tpu_torch.utils.synth import (
     merge_edge_cases, odd_offset_view, packed_batch, packed_rows, random_reads,
-    spectra_pair,
+    run_count_streams, spectra_pair,
 )
 
 pytestmark = pytest.mark.cuda
@@ -690,3 +690,85 @@ def test_cuda_minimizer_sketch_at_any_w(cuda_device, tmp_path):
         assert want[1][0].size > 0
         for a, b in zip(got[1], want[1]):
             np.testing.assert_array_equal(a, b)
+
+
+RUN_STREAMS = list(run_count_streams(np.random.default_rng(0), True))
+
+
+def _runs_equal(got, want, what):
+    for a, b, part in zip(got, want, ("hi", "lo", "counts")):
+        assert (a is None) == (b is None), (what, part)
+        if a is not None:
+            assert a.dtype == b.dtype == torch.int32, (what, part)
+            assert torch.equal(a, b), (what, part)
+
+
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("name", RUN_STREAMS)
+def test_cuda_run_counts_match_plain(cuda_device, name, wide):
+    """The run-count kernel on its edge cases equals its plain version bit
+    for bit, one launch a stream, from an aligned buffer (16-byte vectors)
+    and from one 8 bytes off (scalar loads)."""
+    keys = run_count_streams(np.random.default_rng(len(name)), wide)[name]
+    k = torch.from_numpy(keys).to(cuda_device)
+    buf = torch.empty(k.numel() + 1, dtype=torch.int64, device=cuda_device)
+    off = buf[1:]
+    off.copy_(k)
+    tk.reset_launches()
+    for what, t in (("aligned", k), ("8 bytes off", off)):
+        _runs_equal(tk.run_counts(t, wide), tk.run_counts_plain(t, wide), what)
+    assert tk.LAUNCHES["run_counts"] == (2 if keys.size else 0)
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_cuda_run_counts_minimizer_flush(cuda_device, wide):
+    """A 2^26-lane flush, half of it sentinel padding, the rest runs of
+    100-500 equal keys as a HiFi minimizer flush holds them."""
+    n = 1 << 26
+    g = torch.Generator(device=cuda_device).manual_seed(91 + wide)
+    runs = (n // 2) // 100
+    lengths = torch.randint(100, 501, (runs,), device=cuda_device, generator=g)
+    step = torch.randint(1, (1 << 40) if wide else (1 << 13), (runs,),
+                         device=cuda_device, generator=g)
+    start = -(1 << 62) if wide else 0
+    run_keys = start + torch.cumsum(step, 0)
+    sentinel = (1 << 63) - 1 if wide else 0xFFFFFFFF
+    keys = torch.full((n,), sentinel, dtype=torch.int64, device=cuda_device)
+    keys[: n // 2] = torch.repeat_interleave(run_keys, lengths)[: n // 2]
+    tk.reset_launches()
+    got = tk.run_counts(keys, wide)
+    assert tk.LAUNCHES["run_counts"] == 1
+    want = tk.run_counts_plain(keys, wide)
+    _runs_equal(got, want, "2^26 lanes")
+    assert int(got[2].sum()) == n // 2
+    assert int((got[2] > 0).sum()) == int(
+        (torch.cumsum(lengths, 0) < n // 2).sum()) + 1
+
+
+@pytest.mark.parametrize("k", [15, 21])
+def test_cuda_count_file_counts_runs_once_a_flush(cuda_device, tmp_path,
+                                                  monkeypatch, k):
+    """``count_file`` on the card, narrow (k=15) and wide keys, its flush
+    bound made small so the stream takes several flushes: one run-count
+    launch a flush, and the spectrum of the CPU's plain route."""
+    from pathlib import Path
+
+    from needletail_tpu_torch.device import count as tc
+    from needletail_tpu_torch.device.pipeline import count_file
+
+    copies = tmp_path / "x8.fq"
+    copies.write_bytes(Path(FQ).read_bytes() * 8)
+    kw = dict(batch_size=4096, max_len=128, host_workers=1,
+              sparse_format="arrays")
+    init = tc.SparseSpectrumAccumulator.__init__
+    monkeypatch.setattr(init, "__defaults__", (1 << 20, None))
+    tk.reset_launches()
+    tc.reset_flush_routes()
+    got = count_file(str(copies), k, device="cuda", **kw)
+    flushes = sum(tc.FLUSH_ROUTES.values())
+    assert flushes > 1
+    assert tk.LAUNCHES["run_counts"] == flushes
+    want = count_file(str(copies), k, device="cpu", **kw)
+    assert got[0] == want[0] == 8 * GOLD[0]
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(a, b)
